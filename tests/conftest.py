@@ -33,6 +33,8 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute compile-heavy tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
 
 
 # the collective-timeout + compile-cache setup the dryrun uses also
