@@ -4,7 +4,8 @@ Counterpart of ``slotvps_tpu/cli/test_eval_vpq.py`` (streaming branch):
 build the model -> stream frames through the port's
 ``InferencePipeline`` -> fuse panoptic outputs -> write pred.json +
 pan_pred/*.png -> compute VPQ at window sizes 0, 5, 10, 15.  Dataset,
-fusion and VPQ are the shared JAX-free code of ``slotvps_tpu``.
+fusion and VPQ are the port's own copies (``slotvps_tpu_torch/data``,
+``slotvps_tpu_torch/eval``).
 
 Weights come from the port's seeded init: loading a published ``.pth`` is
 not ported yet.
@@ -31,11 +32,11 @@ import time
 import numpy as np
 import torch
 
-from slotvps_tpu.config import named_config
-from slotvps_tpu.data.dataset import CityscapesVPSDataset
-from slotvps_tpu.data.loader import PrefetchLoader
-from slotvps_tpu.eval import vpq as vpq_mod
-from slotvps_tpu.eval.fusion import inference_panoptic_video, unify_pan_result
+from slotvps_tpu_torch.config import named_config
+from slotvps_tpu_torch.data.dataset import CityscapesVPSDataset
+from slotvps_tpu_torch.data.loader import PrefetchLoader
+from slotvps_tpu_torch.eval import vpq as vpq_mod
+from slotvps_tpu_torch.eval.fusion import inference_panoptic_video, unify_pan_result
 from slotvps_tpu_torch.inference import InferencePipeline
 from slotvps_tpu_torch.models.detector import init_model
 
@@ -61,8 +62,10 @@ def parse_args(argv=None):
                    help="the port's kernel configuration: the hand-written "
                         "Hopper DCN kernel in f32 (dcn_impl='pallas_f32') "
                         "at per-level halos (2,3,4,6), fused_sseg off, "
-                        "the reference postprocess (impl='jax') and f32 "
-                        "compute")
+                        "the fused postprocess on the Hopper theta, claim, "
+                        "argmax and repair kernels (impl='fused', "
+                        "detect_capacity kept at the config's value, 64 "
+                        "by default) and f32 compute")
     return p.parse_args(argv)
 
 
@@ -73,7 +76,7 @@ def tune_config(cfg):
         semantic_head=dataclasses.replace(
             m.semantic_head, dcn_impl="pallas_f32", fused_sseg=False,
             dcn_halo=(2, 3, 4, 6)[:m.semantic_head.num_levels]),
-        postprocess=dataclasses.replace(m.postprocess, impl="jax"))
+        postprocess=dataclasses.replace(m.postprocess, impl="fused"))
     return dataclasses.replace(cfg, model=m)
 
 
@@ -151,7 +154,7 @@ def main(argv=None):
         categories = im_jsons["categories"]
         names = sorted(x["file_name"] for x in im_jsons["images"])
     else:
-        from slotvps_tpu.eval.color import CITYSCAPES_CATEGORIES
+        from slotvps_tpu_torch.eval.color import CITYSCAPES_CATEGORIES
         categories = list(CITYSCAPES_CATEGORIES)
 
     pred_pans, pred_json = inference_panoptic_video(

@@ -3,8 +3,8 @@
 
 Per frame: upload the uint8 frame, normalize on the device, extract
 features, decode against the previous frame's carried features,
-postprocess, then assign track ids on the host with the shared
-:class:`slotvps_tpu.tracking.TrackState`.  The batched and whole-clip
+postprocess, then assign track ids on the host with the port's
+:class:`slotvps_tpu_torch.tracking.TrackState`.  The batched and whole-clip
 pipelines of the JAX package are not ported yet.
 """
 
@@ -15,8 +15,8 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from slotvps_tpu.config import Config
-from slotvps_tpu.tracking import TrackState
+from slotvps_tpu_torch.config import Config
+from slotvps_tpu_torch.tracking import TrackState
 from slotvps_tpu_torch.models.detector import (Detector, FrameFeatures,
                                                check_supported, decode_pair,
                                                extract_features)
@@ -55,13 +55,17 @@ def _compact_post(post: PostprocResult) -> PostprocResult:
 
 
 class FrameResult(NamedTuple):
-    """Host-side per-frame result, reference ``pano_results`` dict."""
+    """Host-side per-frame result, reference ``pano_results`` dict, plus
+    the postprocess's regime diagnostics."""
 
     sseg: np.ndarray        # [H, W] uint8 semantic argmax
     panoptic: np.ndarray    # [H, W] uint8 fused map
     cls_inds: np.ndarray    # [n_things] 1-based thing class
     cls_prob: np.ndarray    # [n_things] scores
     obj_ids: np.ndarray     # [n_things] track ids
+    n_loop: int = 0         # small-area-filter iterations
+    capacity: int = 0       # slots the postprocess passes ran on
+    n_claim: int = 0        # valid thing slots the claim loop visited
 
 
 class InferencePipeline:
@@ -165,6 +169,7 @@ def finish_frame(post: PostprocResult, is_first: bool, track: TrackState,
         cls_inds=cls_inds.astype(np.int64),
         cls_prob=cls_prob.astype(np.float32),
         obj_ids=obj_ids.astype(np.int64),
+        n_loop=post.n_loop, capacity=post.capacity, n_claim=post.n_claim,
     )
 
 

@@ -17,7 +17,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from slotvps_tpu.config import ModelConfig
+from slotvps_tpu_torch.config import ModelConfig
 from slotvps_tpu_torch.models import layers as L
 from slotvps_tpu_torch.models.fpn import init_fpn
 from slotvps_tpu_torch.models.position_encoding import sine_position_embedding
@@ -85,8 +85,14 @@ class Detector(nn.Module):
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig,
-               device="cpu") -> Detector:
-    """Build the model from ``gen`` on the CPU and move it to ``device``."""
+               device="cuda") -> Detector:
+    """Build the model from ``gen`` on the CPU and move it to ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"init_model(device={str(device)!r}): CUDA is not available; "
+            "pass device='cpu' to build the model on the CPU")
     return Detector(gen, cfg).to(device).eval()
 
 

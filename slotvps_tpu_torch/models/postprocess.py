@@ -1,5 +1,6 @@
-"""Panoptic post-processing, reference path (counterpart of
-``slotvps_tpu/models/postprocess.py`` with ``impl="jax"``).
+"""Panoptic post-processing (counterpart of
+``slotvps_tpu/models/postprocess.py``): the reference path
+(``impl="jax"``) and the fused path (``impl="fused"``).
 
 Fixed slot capacity ``K`` with validity flags, as in the JAX package:
 
@@ -12,11 +13,21 @@ Fixed slot capacity ``K`` with validity flags, as in the JAX package:
  6. iterative small-area filter with argmax recompute,
  7. panoptic id remap: stuff -> class id, thing -> 11 + rank, void 255.
 
-The greedy claim loop and the small-area loop are Python loops here; the
-claim loop visits only the valid thing slots (any other slot is rejected
-before it can claim a pixel, so skipping it changes nothing).  The fused
-kernels (``impl="fused"``) and the claim-scan kernel (``impl="pallas"``)
-are not ported yet and raise ``NotImplementedError``.
+The reference path builds the full-resolution [H, W, K] stack; its greedy
+claim loop and small-area loop are Python loops, and the claim loop visits
+only the valid thing slots (any other slot is rejected before it can claim
+a pixel, so skipping it changes nothing).
+
+The fused path never builds that stack: four Hopper kernels
+(``ops/cuda/postproc_v3.py``; their plain versions on CPU tensors) compute
+theta, the claim loop, the masked argmax with per-tile areas, and each
+small-area iteration on the dirty row tiles only.  It runs on the slot
+prefix of the capacity ladder (``detect_capacity``).  Host syncs per
+frame: one for the valid-slot counts (ladder branch and claim range), one
+per small-area check (``n_loop + 1``) and one for the kept counts.
+
+The claim-scan kernel (``impl="pallas"``) is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +36,11 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from slotvps_tpu.config import PostprocessConfig
+from slotvps_tpu_torch.config import PostprocessConfig
+from slotvps_tpu_torch.ops.cuda.postproc_v3 import (argmax_hopper,
+                                                    claim_hopper,
+                                                    repair_hopper,
+                                                    theta_hopper)
 from slotvps_tpu_torch.ops.interpolate import (interpolate_bilinear,
                                                upsample_x4_bilinear)
 
@@ -47,6 +62,8 @@ class PostprocResult(NamedTuple):
     n_kept: int
     n_things: int
     n_loop: int                # small-area-filter iterations run
+    capacity: int              # slots the passes ran on (ladder branch)
+    n_claim: int               # valid thing slots the claim loop visited
 
 
 def _slot_order(scores, classes, cfg: PostprocessConfig):
@@ -67,8 +84,8 @@ def _mask_removal_scan(logit, labels, is_thing, valid,
     """Greedy per-slot claim loop (reference :601-639).
 
     logit: [K, H, W] bool binarized masks.  Returns (kept [K] bool, owner
-    [H, W] int8 — claiming slot position or -1).  The owner maps are
-    updated in place."""
+    [H, W] int8 — claiming slot position or -1, the number of slots
+    visited).  The owner maps are updated in place."""
     if not cfg.apply_mask_removal_only_ins:
         raise NotImplementedError(
             "only apply_mask_removal_only_ins=True is used by the reference "
@@ -81,7 +98,8 @@ def _mask_removal_scan(logit, labels, is_thing, valid,
     owner = torch.full((h, w), -1, dtype=torch.int8, device=dev)
     owner_class = torch.full((h, w), -1, dtype=torch.int8, device=dev)
     keep_things = torch.zeros(k, dtype=torch.bool, device=dev)
-    for i in torch.nonzero(valid & is_thing).flatten().tolist():
+    things = torch.nonzero(valid & is_thing).flatten().tolist()
+    for i in things:
         lg = logit[i]
         n = mask_sum[i]
         cls = labels[i].to(torch.int8)
@@ -96,7 +114,7 @@ def _mask_removal_scan(logit, labels, is_thing, valid,
         owner_class = torch.where(claim, cls, owner_class)
         keep_things[i] = keep_i
     kept = torch.where(is_thing, keep_things, valid)
-    return kept, owner
+    return kept, owner, len(things)
 
 
 def _dedup_map(labels, is_thing, kept):
@@ -125,22 +143,24 @@ def _argmax_pass(final_vals_hwk, kept, dedup, labels, is_thing):
 
 
 def _finish(kept, m_id, classes, scores, embeds, is_thing, sseg, cfg,
-            n_loop=0):
-    """Panoptic id remap + result assembly."""
+            n_loop=0, n_claim=0):
+    """Panoptic id remap + result assembly (one host sync)."""
     kept_thing = kept & is_thing
     thing_rank = torch.where(kept_thing,
                              torch.cumsum(kept_thing.long(), 0) - 1, -1)
     slot_value = torch.where(kept_thing, cfg.num_stuff + thing_rank,
                              torch.where(kept, classes, 255))
-    if bool(kept.any()):
-        panoptic = slot_value[m_id]
+    n_kept, n_things = torch.stack([kept.sum(), kept_thing.sum()]).tolist()
+    if n_kept:
+        panoptic = slot_value[m_id.long()]
     else:
-        panoptic = torch.full_like(m_id, 255)
+        panoptic = torch.full(m_id.shape, 255, dtype=torch.long,
+                              device=m_id.device)
     return PostprocResult(
         kept=kept, is_thing=is_thing, labels=classes, scores=scores,
         embeddings=embeds, thing_rank=thing_rank, panoptic=panoptic,
-        sseg=sseg, n_kept=int(kept.sum()), n_things=int(kept_thing.sum()),
-        n_loop=n_loop)
+        sseg=sseg, n_kept=n_kept, n_things=n_things, n_loop=n_loop,
+        capacity=kept.shape[0], n_claim=n_claim)
 
 
 def _small_fn(cfg: PostprocessConfig):
@@ -155,6 +175,62 @@ def _small_fn(cfg: PostprocessConfig):
     raise ValueError(cfg.filter_small_option)
 
 
+def _postprocess_fused(masks, scores, classes, valid, embeds, is_thing,
+                       sseg, thing_slots, cfg: PostprocessConfig):
+    """The fused path on slot-major masks [K, h, w] at a 4x target size.
+
+    ``thing_slots = (lo, hi)`` holds every valid thing slot (the slot
+    order puts them there): the claim loop launches once per slot of it."""
+    if not cfg.apply_mask_removal_only_ins:
+        raise NotImplementedError(
+            "only apply_mask_removal_only_ins=True is supported")
+    theta = theta_hopper(masks, valid, cfg.pixel_threshold)
+    keep_things, owner = claim_hopper(masks, theta, classes, is_thing, valid,
+                                      cfg.fraction_threshold,
+                                      slots=thing_slots)
+    kept = torch.where(is_thing, keep_things, valid)
+    small = _small_fn(cfg)
+    k = classes.shape[0]
+
+    # the first pass also gives per-tile per-slot pixel counts, so each
+    # small-area iteration recomputes the argmax only on the row tiles
+    # holding pixels of a removed slot (removals change only the pixels
+    # whose winner was removed; clean tiles are exact copies)
+    m1, areas_t = argmax_hopper(masks, owner, kept, is_thing)
+    dmap = _dedup_map(classes, is_thing, kept)
+    m_disp = dmap[m1.long()]
+    # fold the per-slot areas onto the first kept stuff slot of each class
+    fold = dmap[None, :] == torch.arange(k, device=dmap.device)[:, None]
+    areas = torch.where(kept, (fold * areas_t.sum(0)[None, :]).sum(1), 0)
+    n_loop = 0
+    while bool((kept & small(areas, classes)).any() & kept.any()):
+        removed = kept & small(areas, classes)
+        kept = kept & ~removed
+        dirty = ((areas_t > 0) & removed[None, :]).any(-1)
+        m1, areas_t = repair_hopper(masks, owner, m1, kept, is_thing, dirty,
+                                    areas_t)
+        areas = torch.where(kept, areas_t.sum(0), 0)
+        # after any iteration the displayed map is the raw winner map (the
+        # reference path's loop recomputes without the dedup)
+        m_disp = m1
+        n_loop += 1
+    return _finish(kept, m_disp, classes, scores, embeds, is_thing, sseg,
+                   cfg, n_loop=n_loop,
+                   n_claim=thing_slots[1] - thing_slots[0])
+
+
+def _capacity(n_valid: int, k: int, cap: int) -> int:
+    """The capacity ladder: the slot prefix the fused passes run on.  Every
+    valid slot lies in the prefix, so the result is exact: half the
+    capacity (when that is at least 8 slots), the capacity, or all K."""
+    if not 0 < cap < k:
+        return k
+    half = cap // 2
+    if half >= 8 and n_valid <= half:
+        return half
+    return cap if n_valid <= cap else k
+
+
 def postprocess_frame(
     pred_logits: torch.Tensor,   # [K, C]
     pred_masks: torch.Tensor,    # [K, h, w] quarter-res logits
@@ -163,15 +239,30 @@ def postprocess_frame(
     out_size: Tuple[int, int],
     cfg: PostprocessConfig,
 ) -> PostprocResult:
-    """Full per-frame post-processing at the TARGET size ``out_size``."""
-    if cfg.impl != "jax":
+    """Full per-frame post-processing at the TARGET size ``out_size``.
+
+    ``impl="fused"`` runs the kernels when the target is 4x the mask size
+    and mask removal is on; otherwise, as in the JAX package, the
+    reference path."""
+    if cfg.impl == "pallas":
         raise NotImplementedError(
-            f"postprocess impl={cfg.impl!r} (TPU kernels) is not ported "
-            "yet; use impl='jax'")
+            "postprocess impl='pallas' needs the claim-scan kernel "
+            "(slotvps_tpu/ops/pallas/claim_scan.py), not ported yet; use "
+            "impl='fused' or impl='jax'")
+    if cfg.impl not in ("jax", "fused"):
+        raise ValueError(f"unknown postprocess impl {cfg.impl!r}")
     k = pred_logits.shape[0]
     h, w = out_size
+    fused_ok = (cfg.impl == "fused" and cfg.apply_mask_removal
+                and (h, w) == (4 * pred_masks.shape[1],
+                               4 * pred_masks.shape[2]))
+    fcn_quarter = tuple(fcn_output.shape[:2]) == tuple(pred_masks.shape[1:])
+    if fcn_quarter and fused_ok:
+        raise NotImplementedError(
+            "quarter-res semantic logits (semantic_head fused_sseg) on the "
+            "fused path need the sseg_v3 kernel, not ported yet")
     # reference staging: x4 upsample first, then resize to ori_shape
-    if tuple(fcn_output.shape[:2]) == tuple(pred_masks.shape[1:]):
+    if fcn_quarter:
         fcn_output = upsample_x4_bilinear(fcn_output)
     if tuple(fcn_output.shape[:2]) != (h, w):
         fcn_output = interpolate_bilinear(fcn_output, (h, w),
@@ -189,6 +280,28 @@ def postprocess_frame(
     masks = pred_masks[perm]
     is_thing = classes > cfg.num_stuff - 1
 
+    if fused_ok:
+        sseg = torch.argmax(fcn_output, dim=-1)
+        # one host sync: the slot order is valid stuff, valid things,
+        # invalid, so these two counts give the ladder branch and the
+        # claim loop's range
+        n_valid, n_stuff = torch.stack(
+            [valid.sum(), (valid & ~is_thing).sum()]).tolist()
+        c = _capacity(n_valid, k, cfg.detect_capacity)
+        r = _postprocess_fused(
+            masks[:c].float().contiguous(), scores[:c], classes[:c],
+            valid[:c], embeds[:c], is_thing[:c], sseg, (n_stuff, n_valid),
+            cfg)
+        if c == k:
+            return r
+        pad = k - c
+        return r._replace(
+            kept=torch.cat([r.kept, r.kept.new_zeros(pad)]),
+            is_thing=is_thing, labels=classes, scores=scores,
+            embeddings=embeds,
+            thing_rank=torch.cat([r.thing_rank,
+                                  r.thing_rank.new_full((pad,), -1)]))
+
     masks_hwk = masks.permute(1, 2, 0).to(getattr(torch, cfg.stack_dtype))
     if (h, w) == (4 * masks.shape[1], 4 * masks.shape[2]):
         raw_hwk = upsample_x4_bilinear(masks_hwk)
@@ -199,19 +312,20 @@ def postprocess_frame(
     if cfg.apply_mask_removal:
         # binarize the per-pixel softmax over VALID slots without
         # materializing it: softmax_k(x) >= thr iff
-        # x_k >= log(thr) + logsumexp over valid slots
+        # x_k >= log(thr) + logsumexp over valid slots; log(sum exp) in
+        # float64, rounded once, as ops/postproc_v3.theta takes it
         masked = torch.where(valid, raw_hwk, _NEG)
         mx = masked.amax(dim=-1, keepdim=True)
         lse = mx.float() + torch.log(torch.clamp_min(
-            torch.exp((masked - mx).float()).sum(dim=-1, keepdim=True),
-            1e-30))
+            torch.exp((masked - mx).double()).sum(dim=-1, keepdim=True),
+            1e-30)).float()
         log_thr = torch.log(torch.tensor(cfg.pixel_threshold,
                                          dtype=torch.float32,
                                          device=lse.device))
         theta = log_thr + lse                                # [H, W, 1]
         logit_khw = ((raw_hwk.float() >= theta) & valid).permute(2, 0, 1)
-        kept, owner = _mask_removal_scan(logit_khw, classes, is_thing,
-                                         valid, cfg)
+        kept, owner, n_claim = _mask_removal_scan(logit_khw, classes,
+                                                  is_thing, valid, cfg)
         pos = torch.arange(k, device=owner.device)
         final_vals = torch.where(
             is_thing,
@@ -220,6 +334,7 @@ def postprocess_frame(
     else:
         kept = valid
         final_vals = raw_hwk
+        n_claim = 0
 
     # argmax fusion + iterative small-area filter (reference :758-790)
     small = _small_fn(cfg)
@@ -232,4 +347,4 @@ def postprocess_frame(
         n_loop += 1
     sseg = torch.argmax(fcn_output, dim=-1)
     return _finish(kept, m_id, classes, scores, embeds, is_thing, sseg,
-                   cfg, n_loop=n_loop)
+                   cfg, n_loop=n_loop, n_claim=n_claim)

@@ -8,8 +8,8 @@ on each of P2..P5, each level at its own DCN halo (``cfg.level_halo``):
 
 Each deformable conv predicts its offsets with a zero-initialised 3x3 conv.
 
-``SemanticHeadConfig.dcn_impl`` is shared with the JAX package; the port
-gives its strings these meanings:
+The port's ``SemanticHeadConfig.dcn_impl`` takes the JAX package's
+strings, with these meanings:
 
 * ``"jax"``        — the plain PyTorch DCN (``ops/deform_conv.py``), halo
   ``dcn_halo or 8``;
@@ -27,7 +27,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from slotvps_tpu.config import SemanticHeadConfig
+from slotvps_tpu_torch.config import SemanticHeadConfig
 from slotvps_tpu_torch.models import layers as L
 from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
 from slotvps_tpu_torch.ops.deform_conv import deform_conv2d

@@ -19,7 +19,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from slotvps_tpu.config import SlotHeadConfig
+from slotvps_tpu_torch.config import SlotHeadConfig
 from slotvps_tpu_torch.models import layers as L
 from slotvps_tpu_torch.ops.interpolate import upsample_int_bilinear
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from slotvps_tpu.config import TrackHeadConfig
+from slotvps_tpu_torch.config import TrackHeadConfig
 from slotvps_tpu_torch.models import layers as L
 
 

@@ -1,10 +1,7 @@
-"""Hopper DCN kernel: build, load and wrapper.
+"""Hopper DCN kernel: library and wrapper.
 
-``csrc/deform_conv.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, under
-``slotvps_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``.  The library's name carries a hash of the source, so an edited
-source is rebuilt.  Nothing is compiled or loaded at import time.
+``csrc/deform_conv.cu`` is built and loaded by :class:`KernelLibrary`
+(``ops/cuda/build.py``: nvcc for ``sm_90a`` at first use, ctypes).
 
 :func:`deform_conv2d_hopper` keeps the JAX package's layout at its
 signature.  On CPU tensors it runs the plain version
@@ -15,80 +12,22 @@ it launches the kernel or raises — there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
+from slotvps_tpu_torch.ops.cuda.build import KernelLibrary
 from slotvps_tpu_torch.ops.deform_conv import deform_conv2d
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "deform_conv.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+def _declare(lib: ctypes.CDLL):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dcn_forward_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.dcn_forward_f32.restype = i
+    lib.dcn_error_string.argtypes = [i]
+    lib.dcn_error_string.restype = ctypes.c_char_p
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"deform_conv_{digest[:12]}.so"
-
-
-def build(verbose: bool = False) -> tuple:
-    """Compile the kernel library if it is not built yet.
-
-    Returns ``(path, seconds spent compiling)`` (0.0 when it was built)."""
-    path = library_path()
-    if path.exists():
-        return path, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, path)
-    return path, dt
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dcn_forward_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.dcn_forward_f32.restype = i
-        lib.dcn_error_string.argtypes = [i]
-        lib.dcn_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+LIBRARY = KernelLibrary("deform_conv", _declare)
 
 
 def deform_conv2d_hopper(x: torch.Tensor, offset: torch.Tensor,
@@ -129,7 +68,7 @@ def deform_conv2d_hopper(x: torch.Tensor, offset: torch.Tensor,
     if int(halo) < 0:
         raise ValueError(f"halo {halo} must be >= 0")
 
-    lib = _load()
+    lib = LIBRARY.load()
     out = torch.empty((b, h, w, c_out), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

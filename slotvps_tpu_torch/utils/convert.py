@@ -19,7 +19,7 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-from slotvps_tpu.config import ModelConfig
+from slotvps_tpu_torch.config import ModelConfig
 
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}

@@ -1,4 +1,6 @@
-"""The Hopper DCN kernel against its plain PyTorch version, on the card.
+"""The Hopper kernels against their plain PyTorch versions, on the card:
+the DCN kernel and the four fused-postprocess kernels (theta, claim,
+argmax, repair).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the tests' conftest helpers, so it also runs on a
@@ -6,12 +8,16 @@ machine without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: max |kernel - plain| <= 1e-4 * max |plain| (f32 sums taken in
-another order)."""
+Tolerances: DCN max |kernel - plain| <= 1e-4 * max |plain| (f32 sums taken
+in another order); theta within 1e-5 * max(1, |theta|) (the sum of exp in
+another order); the integer outputs of claim, argmax and repair are
+bit-identical, given identical inputs."""
 
 import pytest
 import torch
 
+from slotvps_tpu_torch.ops import postproc_v3 as plain
+from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
 from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
 from slotvps_tpu_torch.ops.deform_conv import deform_conv2d
 
@@ -19,7 +25,7 @@ from slotvps_tpu_torch.ops.deform_conv import deform_conv2d
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the DCN kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -66,3 +72,102 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
             deform_conv2d_hopper(x, off.cpu(), wt, 2)
         with pytest.raises(ValueError, match="multiple of 4"):
             deform_conv2d_hopper(x, off, wt[..., :6].contiguous(), 2)
+
+
+def _postproc_case(dev, k, h, w, seed=0):
+    """Blob masks, ~2/3 valid slots, things and stuff, and two thing slots
+    of one class that overlap (one is rejected by the claim loop)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.randn((k, h, w), generator=g, device=dev) * 2
+    for i in range(0, k, 3):
+        y = int(torch.randint(0, max(h - 6, 1), (1,), generator=g,
+                              device=dev))
+        x = int(torch.randint(0, max(w - 8, 1), (1,), generator=g,
+                              device=dev))
+        m[i, y:y + 6, x:x + 8] += 6.0
+    labels = torch.randint(0, 19, (k,), generator=g, device=dev)
+    valid = torch.rand((k,), generator=g, device=dev) < 0.7
+    labels[[1, 4]] = 13
+    valid[[1, 4]] = True
+    m[4] = m[1] + 0.01
+    return m.contiguous(), labels, valid, labels > 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 16, 24), (100, 40, 70),
+                                   (64, 256, 512)])
+def test_postproc_kernels_match_plain(cuda_device, shape):
+    k, h, w = shape
+    m, labels, valid, is_thing = _postproc_case(cuda_device, k, h, w)
+    fns = (hv3.theta_hopper, hv3.claim_hopper, hv3.argmax_hopper,
+           hv3.repair_hopper)
+    before = [f.launches for f in fns]
+
+    th = hv3.theta_hopper(m, valid, 0.4)
+    th_ref = plain.theta(m, valid, 0.4)
+    torch.cuda.synchronize()
+    assert float(((th - th_ref).abs()
+                  / th_ref.abs().clamp_min(1.0)).max()) <= 1e-5
+
+    keep, owner = hv3.claim_hopper(m, th_ref, labels, is_thing, valid, 0.03)
+    keep_ref, owner_ref = plain.claim(m, th_ref, labels, is_thing, valid,
+                                      0.03)
+    assert torch.equal(keep, keep_ref) and torch.equal(owner, owner_ref)
+    assert 0 < int(keep.sum()) < int((valid & is_thing).sum())
+
+    kept = torch.where(is_thing, keep_ref, valid)
+    m1, areas = hv3.argmax_hopper(m, owner_ref, kept, is_thing)
+    m1_ref, areas_ref = plain.argmax(m, owner_ref, kept, is_thing)
+    assert torch.equal(m1, m1_ref) and torch.equal(areas, areas_ref)
+
+    # remove the kept slot touching the fewest row tiles: dirty tiles
+    n_tiles = (areas_ref > 0).sum(0)
+    cand = torch.nonzero(kept & (n_tiles > 0)).flatten()
+    gone = cand[n_tiles[cand].argmin()]
+    removed = torch.zeros_like(kept)
+    removed[gone] = True
+    kept_n = kept & ~removed
+    dirty = ((areas_ref > 0) & removed[None]).any(-1)
+    m2, a2 = hv3.repair_hopper(m, owner_ref, m1_ref, kept_n, is_thing, dirty,
+                               areas_ref)
+    m2_ref, a2_ref = plain.repair(m, owner_ref, m1_ref, kept_n, is_thing,
+                                  dirty, areas_ref)
+    torch.cuda.synchronize()
+    assert torch.equal(m2, m2_ref) and torch.equal(a2, a2_ref)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, k + 1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_claim_over_a_slot_range(cuda_device):
+    """The claim loop launched over a range that holds every valid thing
+    slot gives the same result as over all slots."""
+    m, labels, valid, is_thing = _postproc_case(cuda_device, 32, 16, 24)
+    th = plain.theta(m, valid, 0.4)
+    things = torch.nonzero(valid & is_thing).flatten().tolist()
+    lo, hi = things[0], things[-1] + 1
+    before = hv3.claim_hopper.launches
+    ranged = hv3.claim_hopper(m, th, labels, is_thing, valid, 0.03,
+                              slots=(lo, hi))
+    assert hv3.claim_hopper.launches == before + hi - lo + 1
+    full = hv3.claim_hopper(m, th, labels, is_thing, valid, 0.03)
+    assert torch.equal(ranged[0], full[0]) and torch.equal(ranged[1], full[1])
+
+
+@pytest.mark.cuda
+def test_postproc_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    m, labels, valid, is_thing = _postproc_case(cuda_device, 24, 16, 24)
+    th = plain.theta(m, valid, 0.4)
+    with pytest.raises(TypeError, match="float32"):
+        hv3.theta_hopper(m.double(), valid, 0.4)
+    with pytest.raises(TypeError, match="contiguous"):
+        hv3.theta_hopper(m.transpose(1, 2), valid, 0.4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        hv3.theta_hopper(m, valid.cpu(), 0.4)
+    with pytest.raises(ValueError, match="int8 owner"):
+        big = torch.zeros((128, 16, 24), device=cuda_device)
+        hv3.theta_hopper(big, torch.ones(128, dtype=torch.bool,
+                                         device=cuda_device), 0.4)
+    with pytest.raises(ValueError, match="theta"):
+        hv3.claim_hopper(m, th[:, :-1], labels, is_thing, valid, 0.03)
+    with pytest.raises(ValueError, match="owner"):
+        hv3.argmax_hopper(m, th, valid, is_thing)

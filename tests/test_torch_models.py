@@ -4,7 +4,9 @@ slotvps_tpu_torch against the JAX package, with the same parameters
 the same numpy inputs, at a small size (R18, 20 slots, 64x128).
 
 Tolerance rtol = atol = 1e-4 (f32 on both sides, sums in another order).
-The shared helpers here also serve the other test_torch_* files."""
+The shared helpers here also serve the other test_torch_* files.  Each
+package gets its own config objects: ``tiny_model_cfg`` builds from the
+JAX package's config module or from the port's copy of it."""
 
 import dataclasses
 
@@ -14,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from slotvps_tpu.config import ModelConfig, ResNetConfig, SlotHeadConfig
+from slotvps_tpu import config as jconfig
 from slotvps_tpu.models import detector as jdet
+from slotvps_tpu_torch import config as tconfig
 from slotvps_tpu_torch.models import detector as tdet
 from slotvps_tpu_torch.utils.convert import from_jax_params
 
@@ -23,32 +26,31 @@ H, W = 64, 128
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def tiny_model_cfg(dcn_impl="jax") -> ModelConfig:
-    """R18 / 20 slots / 4 decoder stages, per-level halos (2, 3, 4, 6)."""
-    cfg = ModelConfig(
-        resnet=ResNetConfig(depth=18),
-        slot_head=SlotHeadConfig(per_dh_num_heads=(1, 1, 1, 1),
-                                 dh_num_heads=4,
-                                 apply_temporal_query_atten_stages=(2, 3)),
+def tiny_model_cfg(dcn_impl="jax", config=jconfig):
+    """R18 / 20 slots / 4 decoder stages, per-level halos (2, 3, 4, 6),
+    built from ``config``: ``jconfig`` for the JAX package, ``tconfig`` for
+    the port."""
+    cfg = config.ModelConfig(
+        resnet=config.ResNetConfig(depth=18),
+        slot_head=config.SlotHeadConfig(
+            per_dh_num_heads=(1, 1, 1, 1), dh_num_heads=4,
+            apply_temporal_query_atten_stages=(2, 3)),
         proposal_num=20)
     return dataclasses.replace(cfg, semantic_head=dataclasses.replace(
         cfg.semantic_head, dcn_impl=dcn_impl, dcn_halo=(2, 3, 4, 6)))
 
 
-def with_dcn_impl(cfg: ModelConfig, impl: str) -> ModelConfig:
-    return dataclasses.replace(cfg, semantic_head=dataclasses.replace(
-        cfg.semantic_head, dcn_impl=impl))
-
-
-def port_model(params, cfg: ModelConfig):
-    """The port's model holding the JAX parameters ``params``."""
+def port_model(params, cfg):
+    """The port's model (port config ``cfg``) on the CPU, holding the JAX
+    parameters ``params``."""
     state = from_jax_params(jax.tree.map(np.asarray, params), cfg)
-    model = tdet.init_model(torch.Generator().manual_seed(0), cfg)
+    model = tdet.init_model(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
     model.load_state_dict(state, strict=True)
     return model
 
 
-def doctored_params(cfg: ModelConfig, seed=0, **doctor_kw):
+def doctored_params(cfg, seed=0, **doctor_kw):
     """JAX init + doctor_params (nonzero fractional DCN offsets)."""
     from slotvps_tpu.utils.calibration import doctor_params
 
@@ -71,7 +73,7 @@ def pair():
     # fractional DCN offsets; fg_bn left at its reference init (0.1, var 1)
     # so mask logits stay at unit scale
     params = doctored_params(cfg, fg_scale=0.1, fg_var=1.0)
-    model = port_model(params, with_dcn_impl(cfg, "pallas_f32"))
+    model = port_model(params, tiny_model_cfg("pallas_f32", tconfig))
     # a random-init backbone with identity BN statistics amplifies its
     # input ~5x; a quarter-scale image keeps features at unit scale
     img = 0.25 * np.random.default_rng(0).standard_normal(
@@ -100,9 +102,12 @@ def test_bottleneck_backbone_and_fpn():
     from slotvps_tpu.models.fpn import apply_fpn
     from slotvps_tpu.models.resnet import apply_resnet
 
-    cfg = dataclasses.replace(tiny_model_cfg(), resnet=ResNetConfig(depth=50))
+    cfg = dataclasses.replace(tiny_model_cfg(),
+                              resnet=jconfig.ResNetConfig(depth=50))
     params = jdet.init_model(jax.random.PRNGKey(3), cfg)
-    model = port_model(params, cfg)
+    model = port_model(params, dataclasses.replace(
+        tiny_model_cfg(config=tconfig),
+        resnet=tconfig.ResNetConfig(depth=50)))
     # the random-init R50 with identity BN statistics amplifies its input
     # ~1000x, and is linear in it (no biases): a 1e-3-scale image keeps
     # the outputs at unit scale
@@ -133,7 +138,7 @@ def test_semantic_head_kernel_route_vs_jax(pair):
     with torch.no_grad():
         ours = model.semantic_head(
             [_t(f) for f in fpn],
-            with_dcn_impl(cfg, "pallas_f32").semantic_head)
+            tiny_model_cfg("pallas_f32", tconfig).semantic_head)
     _close(ours[0], ref[0])
     _close(ours[1], ref[1])
     for a, b in zip(ours[2], ref[2]):
@@ -142,7 +147,7 @@ def test_semantic_head_kernel_route_vs_jax(pair):
 
 def test_extract_features_and_decoder(pair):
     cfg, params, model, img = pair
-    tcfg = with_dcn_impl(cfg, "pallas_f32")
+    tcfg = tiny_model_cfg("pallas_f32", tconfig)
     jf = jax.jit(lambda p, x: jdet.extract_features(p, cfg, x))(
         params, jnp.asarray(img))
     with torch.no_grad():
@@ -190,7 +195,7 @@ def test_track_head(pair):
 
 
 def test_unported_configuration_raises():
-    cfg = tiny_model_cfg()
+    cfg = tiny_model_cfg(config=tconfig)
     for bad in (dataclasses.replace(cfg, compute_dtype="bfloat16"),
                 dataclasses.replace(cfg, backbone="swin"),
                 dataclasses.replace(cfg, pos_embedding="learned")):
