@@ -6,30 +6,38 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises, exit code != 0):
-  1. device   — card name and power limit, torch/CUDA versions; TF32 off.
-  2. build    — compile both kernel libraries from slotvps_tpu_torch/csrc/
-     (one nvcc each, started together).
+  1. device   — card name and power limit, torch/CUDA versions; the port's
+     precision setup (no TF32, bf16 products reduced in f32).
+  2. build    — compile the three kernel libraries from
+     slotvps_tpu_torch/csrc/ (one nvcc each, started together).
   3. kernels  — each kernel against its plain PyTorch version on the card,
-     with CUDA-event times of both and the bound: the DCN kernel at the 12
-     (tower block, FPN level) shapes of a 1024x2048 frame, each at its
-     level's halo; theta, claim, argmax and repair at K = 64 and K = 100
-     slots of 256x512 low-res masks, with small segments so that repair
-     has dirty tiles.
-  4. slice    — r50_fpn_slotvps at full width and 1024x2048, the port's
-     tuned configuration (DCN kernel f32, fused postprocess), seeded random
-     weights doctored and calibrated so ~48 slots clear the 0.85 keep
-     threshold; a 6-frame synthetic uint8 clip through InferencePipeline
-     (run_video and process_frame); counts every kernel's launches on that
-     path and checks the outputs.
-  5. postproc — on two clip frames, the decoder outputs captured on the
-     card go through postprocess_frame with impl="fused" (the kernels) and
-     impl="jax" (the reference path): equal sseg, panoptic >= 99.99 %.
-  6. stages   — per-stage times of the slice's frame (device synchronize
-     between stages), the postprocess with each impl, and a torch.profiler
-     pass: device time by kernel and busy share.
-  7. plain    — the first frames again, fully plain (dcn_impl="jax",
-     postprocess impl="jax") on the card: no kernel launches; pixel
-     agreement with the kernel path.
+     with CUDA-event times of both and the bound: the DCN kernel in f32 and
+     in bf16 at the 12 (tower block, FPN level) shapes of a 1024x2048
+     frame, each at its level's halo; theta, claim, argmax and repair at
+     K = 64 and K = 100 slots of 256x512 low-res masks, with small segments
+     so that repair has dirty tiles; sseg on [256, 512, 19] quarter-res
+     logits with ties; slot attention at the decoder's four pixel counts.
+  4. slice    — r50_fpn_slotvps at full width and 1024x2048, the JAX
+     package's tuned stack with the slot-attention kernel (bf16, bf16 DCN
+     kernel, fused_sseg, fused postprocess, retriever_impl="pallas"),
+     seeded random weights doctored and calibrated so ~48 slots clear the
+     0.85 keep threshold; a 6-frame synthetic uint8 clip through
+     InferencePipeline (run_video and process_frame); counts every
+     kernel's launches on that path and checks the outputs.  Then the f32
+     path of the earlier slices (f32 DCN kernel, full-res semantic logits,
+     fused postprocess) on the first 3 frames with the same weights, with
+     its own launch counts.
+  5. postproc — on two clip frames, the bf16 path's decoder outputs go
+     through postprocess_frame with impl="fused" (the kernels, sseg on the
+     quarter-res logits) and impl="jax" (the reference path): equal sseg,
+     panoptic >= 99.99 %.
+  6. stages   — per-stage times of the frame (device synchronize between
+     stages) for the bf16 and the f32 path, the postprocess with each impl,
+     and a torch.profiler pass each: device time by kernel and busy share.
+  7. plain    — the first frames again, fully plain in bf16
+     (dcn_impl="jax", retriever_impl="jax", postprocess impl="jax") on the
+     card: no kernel launches; pixel agreement with the kernel path; and
+     the bf16 path's agreement with the f32 path, printed.
   8. report   — the card line, the kernels' JSON line, and last the result
      line {"ok": true, "device": {...}}.
 
@@ -57,8 +65,19 @@ DCN_LEVELS = ((256, 512, 2), (128, 256, 3), (64, 128, 4), (32, 64, 6))
 DCN_BLOCKS = ((256, 256), (256, 128), (128, 128))
 # kernel vs plain: f32 sums taken in another order (per-tap reduction over
 # 9*Cin terms, FMA contraction) differ by a few ulp of the largest partial
-# sums; 1e-4 of the output scale leaves two orders of magnitude of margin
-DCN_RTOL = 1e-4
+# sums; 1e-4 of the output scale leaves two orders of magnitude of margin.
+# In bf16 both round at the same three points, and a sum in another order
+# moves a rounded value by one bf16 ulp (2**-8 relative) now and then.
+DCN_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# slot attention (f32 out): f32 sums over 256 channels and over the pixels
+# in another order
+SA_RTOL = 1e-4
+# (pixels, calls per frame) of the slot-attention kernel: stage 0 on the
+# 32x64 level, two stages on each finer level, both frames of the pair
+SA_PIXELS = ((2048, 2), (8192, 4), (32768, 4), (131072, 4))
+SA_SLOTS = 100
+# (h, w, C) of the quarter-res semantic logits of a 1024x2048 frame
+SSEG_SHAPE = (256, 512, 19)
 # theta: the sum of exp over slots is taken in another order; a few ulp
 THETA_RTOL = 1e-5
 # (K, h, w) of the postprocess kernels: the ladder's 64-slot prefix and
@@ -68,19 +87,34 @@ PP_VALID = 40            # valid slots of the kernel-phase cases
 # fused vs reference postprocess: the fused theta sums in another order,
 # which may move a pixel that sits within an ulp of the threshold
 PAN_AGREE = 0.9999
-# published H100 SXM peaks at 700 W: f32 outside the tensor cores, HBM
+# bf16 kernel path vs the fully plain bf16 path: the two are different bf16
+# functions (the plain DCN computes in f32, the plain Retriever keeps a bf16
+# attention tensor), so they differ as the JAX package's bf16 tuned stack
+# differs from its exact path in this calibrated regime; these are that
+# package's own floors for it (tests/test_tuned_vs_exact.py ADV_MIN_SSEG,
+# ADV_MIN_PAN_MATCHED), with panoptic ids matched by overlap
+PLAIN_BF16_SSEG = 0.97
+PLAIN_BF16_PAN = 0.30
+# published H100 SXM peaks at 700 W: f32 outside the tensor cores, dense
+# bf16 on the tensor cores, HBM
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES = 3.35e12
 SRC = "slotvps_tpu_torch/csrc/"
 PV3 = "slotvps_tpu/ops/pallas/postproc_v3.py"
-# kernel -> (source, the TPU kernel it replaces)
+DCN_TPU = "slotvps_tpu/ops/pallas/deform_conv.py:44"
+# kernel -> (source, the TPU kernel it replaces, the path it belongs to)
 KERNELS = {
-    "deform_conv2d_hopper": (SRC + "deform_conv.cu",
-                             "slotvps_tpu/ops/pallas/deform_conv.py:44"),
-    "theta_hopper": (SRC + "postproc_v3.cu", PV3 + ":151"),
-    "claim_hopper": (SRC + "postproc_v3.cu", PV3 + ":252"),
-    "argmax_hopper": (SRC + "postproc_v3.cu", PV3 + ":351"),
-    "repair_hopper": (SRC + "postproc_v3.cu", PV3 + ":462"),
+    "deform_conv2d_hopper": (SRC + "deform_conv.cu", DCN_TPU, "f32"),
+    "deform_conv2d_hopper_bf16": (SRC + "deform_conv.cu", DCN_TPU, "bf16"),
+    "theta_hopper": (SRC + "postproc_v3.cu", PV3 + ":151", "bf16"),
+    "claim_hopper": (SRC + "postproc_v3.cu", PV3 + ":252", "bf16"),
+    "argmax_hopper": (SRC + "postproc_v3.cu", PV3 + ":351", "bf16"),
+    "repair_hopper": (SRC + "postproc_v3.cu", PV3 + ":462", "bf16"),
+    "sseg_hopper": (SRC + "postproc_v3.cu", PV3 + ":551", "bf16"),
+    "slot_attention_hopper": (SRC + "slot_attention.cu",
+                              "slotvps_tpu/ops/pallas/slot_attention.py:35",
+                              "bf16"),
 }
 
 
@@ -89,30 +123,43 @@ def log(phase, msg):
 
 
 def wrappers():
-    """name -> kernel wrapper (each carries its ``launches`` count)."""
+    """name -> kernel wrapper with an integer ``launches`` count (the DCN
+    wrapper counts per dtype: see :func:`launch_counts`)."""
     from slotvps_tpu_torch.ops.cuda import postproc_v3 as pv3
-    from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
+    from slotvps_tpu_torch.ops.cuda.slot_attention import (
+        slot_attention_hopper)
 
-    return {"deform_conv2d_hopper": deform_conv2d_hopper,
-            "theta_hopper": pv3.theta_hopper,
+    return {"theta_hopper": pv3.theta_hopper,
             "claim_hopper": pv3.claim_hopper,
             "argmax_hopper": pv3.argmax_hopper,
-            "repair_hopper": pv3.repair_hopper}
+            "repair_hopper": pv3.repair_hopper,
+            "sseg_hopper": pv3.sseg_hopper,
+            "slot_attention_hopper": slot_attention_hopper}
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
+
+    dcn = deform_conv2d_hopper.launches
+    counts = {"deform_conv2d_hopper": dcn["float32"],
+              "deform_conv2d_hopper_bf16": dcn["bfloat16"]}
+    counts.update({name: fn.launches for name, fn in wrappers().items()})
+    return counts
 
 
 def reset_counts():
+    from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
+
+    for key in deform_conv2d_hopper.launches:
+        deform_conv2d_hopper.launches[key] = 0
     for fn in wrappers().values():
         fn.launches = 0
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, peak_ops=F32_FLOPS):
     """(bound ms, what bounds it) on the published peaks."""
     t_bytes = n_bytes / HBM_BYTES * 1e3
-    t_ops = n_ops / F32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -127,17 +174,19 @@ def phase_device():
     log("device", f"{card} | torch {torch.__version__} | CUDA "
                   f"{torch.version.cuda} | {torch.cuda.device_count()} "
                   "device(s)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from slotvps_tpu_torch.utils.precision import setup_precision
+
+    setup_precision()
     return torch.device("cuda", 0), card
 
 
 def phase_build():
-    """Both libraries from the checkout's sources, one nvcc each, started
+    """The libraries from the checkout's sources, one nvcc each, started
     together.  Returns library name -> seconds."""
-    from slotvps_tpu_torch.ops.cuda import deform_conv, postproc_v3
+    from slotvps_tpu_torch.ops.cuda import (deform_conv, postproc_v3,
+                                            slot_attention)
 
-    libs = (deform_conv.LIBRARY, postproc_v3.LIBRARY)
+    libs = (deform_conv.LIBRARY, postproc_v3.LIBRARY, slot_attention.LIBRARY)
     for lib in libs:
         path = lib.library_path()
         if path.exists():
@@ -179,42 +228,49 @@ def dcn_case(dev, h, w, cin, cout, halo, seed):
     return x, off, wt
 
 
-def phase_kernels(dev, levels=DCN_LEVELS, blocks=DCN_BLOCKS, timed=True):
-    """DCN kernel vs plain at every (level, block) shape."""
+def phase_kernels(dev, levels=DCN_LEVELS, blocks=DCN_BLOCKS, timed=True,
+                  dtype=torch.float32):
+    """DCN kernel vs plain at every (level, block) shape, in ``dtype``
+    (inputs rounded to it; the plain version at compute_dtype=dtype)."""
     from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
     from slotvps_tpu_torch.ops.deform_conv import deform_conv2d
 
+    rtol = DCN_RTOL[dtype]
+    size = torch.finfo(dtype).bits // 8
     rows = []
     for li, (h, w, halo) in enumerate(levels):
         for bi, (cin, cout) in enumerate(blocks):
-            x, off, wt = dcn_case(dev, h, w, cin, cout, halo,
-                                  seed=10 * li + bi)
+            x, off, wt = (t.to(dtype) for t in dcn_case(
+                dev, h, w, cin, cout, halo, seed=10 * li + bi))
+
+            def plain():
+                return deform_conv2d(x, off, wt, padding=1,
+                                     max_displacement=halo,
+                                     compute_dtype=dtype)
+
             with torch.no_grad():
-                ref = deform_conv2d(x, off, wt, padding=1,
-                                    max_displacement=halo)
+                ref = plain()
                 out = deform_conv2d_hopper(x, off, wt, halo)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            scale = float(ref.abs().max())
-            ok = bool(torch.isfinite(out).all()) and err <= DCN_RTOL * scale
+            err = float((out.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            ok = bool(torch.isfinite(out).all()) and err <= rtol * scale
             # each input read once, the output written once; one FMA = 2
-            n_bytes = 4 * (h * w * (cin + 18 + cout) + 9 * cin * cout)
+            n_bytes = size * (h * w * (cin + 18 + cout) + 9 * cin * cout)
             row = dict(shape=f"P{li + 2} {h}x{w} {cin}->{cout} halo {halo}",
-                       max_abs_err=err, max_abs_ref=scale,
+                       dtype=str(dtype), max_abs_err=err, max_abs_ref=scale,
                        bytes=n_bytes, ops=2 * 9 * cin * cout * h * w)
             if timed:
                 with torch.no_grad():
                     row["ms"] = _cuda_ms(
                         lambda: deform_conv2d_hopper(x, off, wt, halo))
-                    row["plain_ms"] = _cuda_ms(
-                        lambda: deform_conv2d(x, off, wt, padding=1,
-                                              max_displacement=halo))
+                    row["plain_ms"] = _cuda_ms(plain)
             log("kernels", json.dumps(row))
             if not ok:
                 raise AssertionError(
-                    f"DCN kernel disagrees at {row['shape']}: max|d| "
-                    f"{err:.3e} > {DCN_RTOL} * max|ref| {scale:.3e}")
+                    f"{dtype} DCN kernel disagrees at {row['shape']}: "
+                    f"max|d| {err:.3e} > {rtol} * max|ref| {scale:.3e}")
             rows.append(row)
     return rows
 
@@ -368,6 +424,88 @@ def phase_postproc_kernels(dev, shapes=PP_SHAPES, n_valid=PP_VALID,
     return out
 
 
+def phase_sseg_kernel(dev, shape=SSEG_SHAPE, timed=True):
+    """sseg kernel vs plain on seeded quarter-res logits [h, w, C] with
+    ties (a channel copied, a block where all channels are equal): the
+    maps must be equal."""
+    from slotvps_tpu_torch.ops import postproc_v3 as plain
+    from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
+
+    h, w, c = shape
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((h, w, c), generator=g, device=dev) * 3
+    x[..., c - 1] = x[..., 2]
+    x[: h // 8, : w // 8, :] = 0.5
+    out = hv3.sseg_hopper(x)
+    ref = plain.sseg(x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    n_diff = int((out != ref).sum())
+    full = 16 * h * w
+    # read the logits once, write the int64 map; per full-res pixel and
+    # channel a column phase (3 flops) and a compare, per quarter-res
+    # value four row phases (3 flops each)
+    b_ms, b_by = bound(4 * c * h * w + 8 * full,
+                       4 * c * full + 12 * c * h * w)
+    row = dict(kernel="sseg_hopper", shape=list(shape), max_abs_err=n_diff,
+               bound_ms=b_ms, bound_by=b_by)
+    if timed:
+        row["ms"] = _cuda_ms(lambda: hv3.sseg_hopper(x))
+        row["plain_ms"] = _cuda_ms(lambda: plain.sseg(x), n=5, warmup=1)
+    log("kernels", json.dumps(row))
+    if n_diff:
+        raise AssertionError(f"sseg kernel differs from plain at {n_diff} "
+                             "pixels")
+    return row
+
+
+def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
+                         timed=True):
+    """Slot-attention kernel vs plain at the decoder's pixel counts, bf16
+    q [1, L, 256], k and v [1, P, 256].  Returns the per-frame row (each
+    shape weighted by its calls per frame)."""
+    from slotvps_tpu_torch.ops.cuda.slot_attention import (
+        slot_attention_hopper)
+    from slotvps_tpu_torch.ops.slot_attention import slot_attention
+
+    total = dict(kernel="slot_attention_hopper", max_abs_err=0.0,
+                 bytes=0, ops=0, ms=0.0, plain_ms=0.0)
+    for i, (n_pix, calls) in enumerate(pixels):
+        g = torch.Generator(device=dev).manual_seed(20 + i)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16) for shape in ((1, n_slots, 256),
+                                          (1, n_pix, 256), (1, n_pix, 256)))
+        out = slot_attention_hopper(q, k, v)
+        ref = slot_attention(q, k, v)
+        again = slot_attention_hopper(q, k, v)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        # q, k, v read once, out written once; the two products 2 flops per
+        # (slot, pixel, channel) each, the softmax ~5 per (slot, pixel)
+        n_bytes = 2 * (n_slots + 2 * n_pix) * 256 + 4 * n_slots * 256
+        n_ops = 4 * n_slots * 256 * n_pix + 5 * n_slots * n_pix
+        row = dict(P=n_pix, calls_per_frame=calls, max_abs_err=err,
+                   max_abs_ref=scale, bytes=n_bytes, ops=n_ops)
+        if timed:
+            row["ms"] = _cuda_ms(lambda: slot_attention_hopper(q, k, v))
+            row["plain_ms"] = _cuda_ms(lambda: slot_attention(q, k, v))
+            total["ms"] += calls * row["ms"]
+            total["plain_ms"] += calls * row["plain_ms"]
+        log("kernels", json.dumps(row))
+        if not (err <= SA_RTOL * scale and torch.equal(out, again)):
+            raise AssertionError(
+                f"slot attention disagrees at P={n_pix}: max|d| {err:.3e} "
+                f"vs {SA_RTOL} * max|ref| {scale:.3e}, or two runs differ")
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["bytes"] += calls * n_bytes
+        total["ops"] += calls * n_ops
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"],
+                                                 total["ops"])
+    return total
+
+
 def make_clip(h, w, n_frames, seed=0):
     """Synthetic uint8 BGR clip [1, h, w, 3] per frame: coloured blocks
     with pixel noise, panning 16 px per frame."""
@@ -437,23 +575,31 @@ def check_results(results, h, w, stuff_num, cfg):
 
 
 def expected_launches(cfg, results):
-    """Each kernel's launches on the path, from what the frames report:
-    DCN 3 blocks x levels per frame, theta and argmax one per frame, the
-    claim loop one per valid thing slot plus one, repair one per
-    small-area iteration."""
+    """Each kernel's launches on the path of ``cfg``, from what the frames
+    report: the DCN of the path's dtype 3 blocks x levels per frame, sseg
+    one per frame on quarter-res logits, slot attention one per decoder
+    stage and frame of the pair, theta and argmax one per frame, the claim
+    loop one per valid thing slot plus one, repair one per small-area
+    iteration."""
+    m = cfg.model
     n = len(results)
-    return {"deform_conv2d_hopper":
-            3 * cfg.model.semantic_head.num_levels * n,
-            "theta_hopper": n,
-            "claim_hopper": sum(r.n_claim + 1 for r in results),
-            "argmax_hopper": n,
-            "repair_hopper": sum(r.n_loop for r in results)}
+    dcn = {"pallas": "deform_conv2d_hopper_bf16",
+           "pallas_f32": "deform_conv2d_hopper"}[m.semantic_head.dcn_impl]
+    want = dict.fromkeys(KERNELS, 0)
+    want[dcn] = 3 * m.semantic_head.num_levels * n
+    if m.semantic_head.fused_sseg:
+        want["sseg_hopper"] = n
+    if m.slot_head.retriever_impl == "pallas":
+        want["slot_attention_hopper"] = \
+            2 * sum(m.slot_head.per_dh_num_heads) * n
+    want.update(theta_hopper=n, argmax_hopper=n,
+                claim_hopper=sum(r.n_claim + 1 for r in results),
+                repair_hopper=sum(r.n_loop for r in results))
+    return want
 
 
-def phase_slice(dev, cfg, h=H, w=W, n_frames=N_FRAMES, target_valid=48):
-    """The main path: returns (model, frames, results, stats)."""
-    from slotvps_tpu_torch.inference import InferencePipeline, run_video
-
+def prepare(dev, cfg, h=H, w=W, n_frames=N_FRAMES, target_valid=48):
+    """(calibrated model, synthetic clip) for the slice."""
     frames = make_clip(h, w, n_frames)
     # calibrate on a frame outside the clip: bisecting on a clip frame
     # would leave one of its slots exactly at the keep threshold
@@ -464,8 +610,17 @@ def phase_slice(dev, cfg, h=H, w=W, n_frames=N_FRAMES, target_valid=48):
                  f" s: scale {info['scale']:.3f}, {info['n_valid_probe']} "
                  "slots clear the keep rule on the probe frame (outside "
                  "the clip)")
-    cuda = dev.type == "cuda"
+    return model, frames
 
+
+def phase_slice(dev, cfg, model, frames, label="bf16"):
+    """One path through InferencePipeline: its launch counts (set to 0
+    just before, read just after run_video), outputs and steady frame.
+    Returns (results, stats)."""
+    from slotvps_tpu_torch.inference import InferencePipeline, run_video
+
+    h, w = frames[0].shape[1:3]
+    cuda = dev.type == "cuda"
     pipe = InferencePipeline(model, cfg, image_size=(h, w))
     if cuda:
         torch.cuda.synchronize()
@@ -478,16 +633,17 @@ def phase_slice(dev, cfg, h=H, w=W, n_frames=N_FRAMES, target_valid=48):
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     want = expected_launches(cfg, results)
     for t, r in enumerate(results):
-        log("slice", f"frame {t}: ladder branch {r.capacity} slots, claim "
-                     f"over {r.n_claim} valid things, n_loop {r.n_loop}, "
-                     f"{len(r.cls_inds)} things kept")
+        log("slice", f"[{label}] frame {t}: ladder branch {r.capacity} "
+                     f"slots, claim over {r.n_claim} valid things, n_loop "
+                     f"{r.n_loop}, {len(r.cls_inds)} things kept")
     if launches != want:
-        raise AssertionError(f"kernel launches {launches} on {n_frames} "
-                             f"frames, want {want}")
-    missing = [name for name, n in launches.items() if n == 0]
+        raise AssertionError(f"[{label}] kernel launches {launches} on "
+                             f"{len(frames)} frames, want {want}")
+    missing = [name for name, n in want.items()
+               if KERNELS[name][2] == label and n == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the path: "
-                             f"{missing}")
+        raise AssertionError(f"[{label}] kernels never launched on the "
+                             f"path: {missing}")
     n_things, tracked = check_results(results, h, w, cfg.model.stuff_num,
                                       cfg)
 
@@ -500,14 +656,14 @@ def phase_slice(dev, cfg, h=H, w=W, n_frames=N_FRAMES, target_valid=48):
         if cuda:
             torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
-    stats = dict(launches=launches, run_video_s=wall,
+    stats = dict(path=label, launches=launches, run_video_s=wall,
                  steady_ms_per_frame=statistics.median(times[1:]),
                  first_frame_ms=times[0], peak_mem_gib=peak / 2 ** 30,
                  things_per_frame=n_things,
                  tracked_ids=[len(x) for x in tracked],
                  obj_ids=[r.obj_ids.tolist() for r in results])
     log("slice", json.dumps(stats))
-    return model, frames, results, stats
+    return results, stats
 
 
 def _decoder_outputs(model, cfg, frames, dev):
@@ -575,7 +731,7 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_stages(model, cfg, frames):
+def phase_stages(model, cfg, frames, label="bf16"):
     """Per-stage ms of the streaming frame (a synchronize between stages,
     median over frames 1..), the postprocess with each impl, then
     torch.profiler over three frames: device ms by kernel, busy share."""
@@ -608,7 +764,8 @@ def phase_stages(model, cfg, frames):
     med = {k: statistics.median(r[k] for r in rows[1:]) for k in rows[0]}
     med["total_fused"] = sum(med[k] for k in ("extract", "decode",
                                               "post_fused", "finish"))
-    log("stages", "median ms/frame over frames 1..: " + json.dumps(med))
+    log("stages", f"[{label}] median ms/frame over frames 1..: "
+                  + json.dumps(med))
 
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -627,14 +784,18 @@ def phase_stages(model, cfg, frames):
             by_name[ev.key] = (dev_us / 1e3, ev.count)
     busy = sum(ms for ms, _ in by_name.values())
     if busy == 0:
-        log("stages", "torch.profiler saw no device time")
+        log("stages", f"[{label}] torch.profiler saw no device time")
         return med
-    log("stages", f"profiler, 3 frames: device {busy:.1f} ms in {wall:.1f} "
-                  f"ms wall, busy share {busy / wall:.3f} (profiler on)")
+    log("stages", f"[{label}] profiler, 3 frames: device {busy:.1f} ms in "
+                  f"{wall:.1f} ms wall, busy share {busy / wall:.3f} "
+                  "(profiler on)")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
-            :12]:
+            :14]:
         log("stages", f"  {ms:9.3f} ms {n:5d} x {name[:90]}")
-    for kern in ("theta_kernel", "claim_kernel", "argmax_kernel"):
+    for kern in ("dcn_fwd_f32_kernel", "dcn_fwd_bf16_kernel",
+                 "slot_attn_partial_kernel", "slot_attn_reduce_kernel",
+                 "sseg_kernel", "theta_kernel", "claim_kernel",
+                 "argmax_kernel"):
         hits = [(ms, n) for name, (ms, n) in by_name.items() if kern in name]
         if hits:
             ms, n = map(sum, zip(*hits))
@@ -643,91 +804,164 @@ def phase_stages(model, cfg, frames):
     return med
 
 
-def phase_plain(model, cfg, frames, results, n_frames=2):
-    """The first frames again, same weights, fully plain on the same
-    device: the plain DCN and the reference postprocess; no kernel may
-    launch."""
+def match_relabel(pan_a, pan_b):
+    """``pan_b``'s segment ids relabelled onto ``pan_a``'s by greedy
+    maximum pixel overlap (injective): two paths that keep the same
+    segments but rank two near-equal scores the other way agree fully."""
+    a = pan_a.astype(np.int64).ravel()
+    b = pan_b.astype(np.int64).ravel()
+    pairs, counts = np.unique(a * 256 + b, return_counts=True)
+    mapping, used = {}, set()
+    for i in np.argsort(counts)[::-1]:
+        sa, sb = int(pairs[i] // 256), int(pairs[i] % 256)
+        if sb not in mapping and sa not in used:
+            mapping[sb] = sa
+            used.add(sa)
+    lut = np.arange(256)
+    for sb, sa in mapping.items():
+        lut[sb] = sa
+    return lut[pan_b]
+
+
+def _agreement(a, b):
+    """(sseg, panoptic, panoptic with ids matched) pixel agreement."""
+    return (float((a.sseg == b.sseg).mean()),
+            float((a.panoptic == b.panoptic).mean()),
+            float((a.panoptic == match_relabel(a.panoptic,
+                                               b.panoptic)).mean()))
+
+
+def phase_plain(model, cfg, frames, results, results_f32, n_frames=2):
+    """The first frames again, same weights, fully plain in bf16 on the
+    same device: the plain DCN, the plain Retriever and the reference
+    postprocess; no kernel may launch.  Also prints, without asserting,
+    how far the bf16 path lies from the f32 path."""
     from slotvps_tpu_torch.inference import InferencePipeline
 
-    sh = dataclasses.replace(cfg.model.semantic_head, dcn_impl="jax")
-    pp = dataclasses.replace(cfg.model.postprocess, impl="jax")
+    m = cfg.model
     plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, semantic_head=sh, postprocess=pp))
+        m, semantic_head=dataclasses.replace(m.semantic_head,
+                                             dcn_impl="jax"),
+        slot_head=dataclasses.replace(m.slot_head, retriever_impl="jax"),
+        postprocess=dataclasses.replace(m.postprocess, impl="jax")))
     pipe = InferencePipeline(model, plain_cfg,
                              image_size=results[0].panoptic.shape)
     before = launch_counts()
     for t, fr in enumerate(frames[:n_frames]):
         r = pipe.process_frame(fr, is_first=(t == 0))
         k = results[t]
-        sseg = float((r.sseg == k.sseg).mean())
-        pan = float((r.panoptic == k.panoptic).mean())
+        sseg, pan, pan_m = _agreement(k, r)
         log("plain", f"frame {t}: sseg agreement {sseg:.6f}, panoptic "
-                     f"agreement {pan:.6f}")
+                     f"agreement {pan:.6f} ({pan_m:.6f} with ids matched)")
         if r.cls_inds.tolist() != k.cls_inds.tolist() \
                 or r.obj_ids.tolist() != k.obj_ids.tolist():
             log("plain", f"frame {t}: kept things differ: kernel "
                          f"cls {k.cls_inds.tolist()} ids "
                          f"{k.obj_ids.tolist()} / plain cls "
                          f"{r.cls_inds.tolist()} ids {r.obj_ids.tolist()}")
-        if sseg < 0.999 or pan < 0.99:
+        if sseg < PLAIN_BF16_SSEG or pan_m < PLAIN_BF16_PAN:
             raise AssertionError(f"frame {t}: kernel path and plain path "
-                                 f"disagree (sseg {sseg}, panoptic {pan})")
+                                 f"disagree (sseg {sseg}, matched "
+                                 f"panoptic {pan_m})")
     if launch_counts() != before:
         raise AssertionError(f"the plain path launched kernels: "
                              f"{before} -> {launch_counts()}")
+    for t, (a, b) in enumerate(zip(results_f32, results)):
+        sseg, pan, pan_m = _agreement(a, b)
+        log("plain", f"frame {t}: bf16 path vs f32 path (same weights): "
+                     f"sseg agreement {sseg:.6f}, panoptic {pan:.6f} "
+                     f"({pan_m:.6f} with ids matched), things "
+                     f"{b.cls_inds.tolist()} / {a.cls_inds.tolist()}")
 
 
 def slice_config():
+    """The JAX package's tuned stack (the port's --tuned) with the
+    slot-attention kernel, as bench.py runs it with BENCH_RETRIEVER=pallas."""
     from slotvps_tpu_torch.cli.test_eval_vpq import tune_config
     from slotvps_tpu_torch.config import named_config
 
-    return tune_config(named_config("r50_fpn_slotvps"))
+    cfg = tune_config(named_config("r50_fpn_slotvps"))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, slot_head=dataclasses.replace(cfg.model.slot_head,
+                                                 retriever_impl="pallas")))
 
 
-def report(dcn_rows, pp_rows, stats, build_s):
-    """The kernels line: the DCN per frame (sums over its 12 shapes), the
-    postprocess kernels at the given K's rows."""
-    b_ms, b_by = bound(sum(r["bytes"] for r in dcn_rows),
-                       sum(r["ops"] for r in dcn_rows))
-    kernels = [{
-        "name": "deform_conv2d_hopper",
-        "max_abs_err": max(r["max_abs_err"] for r in dcn_rows),
-        "ms": sum(r["ms"] for r in dcn_rows),
-        "plain_ms": sum(r["plain_ms"] for r in dcn_rows),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "build_s": build_s["deform_conv"],
-    }]
-    for name, row in pp_rows.items():
-        kernels.append(dict(
+def f32_config():
+    """The path of the port's first two slices: f32 compute, the f32 DCN
+    kernel, full-res semantic logits, the fused postprocess."""
+    cfg = slice_config()
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, compute_dtype="float32",
+        semantic_head=dataclasses.replace(m.semantic_head,
+                                          dcn_impl="pallas_f32",
+                                          fused_sseg=False),
+        slot_head=dataclasses.replace(m.slot_head, retriever_impl="jax")))
+
+
+def report(dcn_rows, pp_rows, sseg_row, sa_row, stats, build_s):
+    """The kernels line: the DCN per frame (sums over its 12 shapes) in
+    each dtype, the postprocess kernels at the given K's rows, sseg, and
+    slot attention per frame (its 14 calls).  ``launches`` comes from the
+    run of the path each kernel belongs to (KERNELS)."""
+    rows = []
+    for name, dtype, peak in (
+            ("deform_conv2d_hopper", torch.float32, F32_FLOPS),
+            ("deform_conv2d_hopper_bf16", torch.bfloat16, BF16_FLOPS)):
+        per_shape = dcn_rows[dtype]
+        b_ms, b_by = bound(sum(r["bytes"] for r in per_shape),
+                           sum(r["ops"] for r in per_shape), peak)
+        rows.append(dict(
+            name=name, max_abs_err=max(r["max_abs_err"] for r in per_shape),
+            ms=sum(r["ms"] for r in per_shape),
+            plain_ms=sum(r["plain_ms"] for r in per_shape),
+            bound_ms=b_ms, bound_by=b_by, build_s=build_s["deform_conv"]))
+    for name, row in list(pp_rows.items()) + [("sseg_hopper", sseg_row)]:
+        rows.append(dict(
             name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], build_s=build_s["postproc_v3"]))
-    for kern in kernels:
-        source, replaces = KERNELS[kern["name"]]
-        # no single PyTorch call computes these functions (torchvision's
-        # deform_conv2d is absent; each v3 kernel fuses the x4 upsample)
+    rows.append(dict(
+        name="slot_attention_hopper", max_abs_err=sa_row["max_abs_err"],
+        ms=sa_row["ms"], plain_ms=sa_row["plain_ms"],
+        bound_ms=sa_row["bound_ms"], bound_by=sa_row["bound_by"],
+        build_s=build_s["slot_attention"]))
+    for kern in rows:
+        source, replaces, path = KERNELS[kern["name"]]
+        # no single PyTorch call computes these functions: torchvision's
+        # deform_conv2d is absent; each v3 kernel fuses the x4 upsample into
+        # its reduction (sseg: interpolate + argmax is two calls); slot
+        # attention sums over the axis that scaled_dot_product_attention
+        # does not normalise
         kern.update(route="cuda", source=source, replaces=replaces,
-                    launches=stats["launches"][kern["name"]],
+                    path=path, launches=stats[path]["launches"][kern["name"]],
                     library_ms=None)
-    return kernels
+    return rows
 
 
 def main():
     dev, card = phase_device()
     build_s = phase_build()
-    dcn_rows = phase_kernels(dev)
+    dcn_rows = {dtype: phase_kernels(dev, dtype=dtype)
+                for dtype in (torch.float32, torch.bfloat16)}
     pp_rows = phase_postproc_kernels(dev)
-    cfg = slice_config()
-    model, frames, results, stats = phase_slice(dev, cfg)
+    sseg_row = phase_sseg_kernel(dev)
+    sa_row = phase_slot_attention(dev)
+    cfg, cfg32 = slice_config(), f32_config()
+    model, frames = prepare(dev, cfg)
+    results, stats = phase_slice(dev, cfg, model, frames, "bf16")
+    results32, stats32 = phase_slice(dev, cfg32, model, frames[:3], "f32")
     phase_postproc(model, cfg, frames, dev)
-    phase_stages(model, cfg, frames)
-    phase_plain(model, cfg, frames, results)
+    phase_stages(model, cfg, frames, "bf16")
+    phase_stages(model, cfg32, frames[:3], "f32")
+    phase_plain(model, cfg, frames, results, results32)
     # the postprocess kernels' numbers at the ladder branch the clip took
     k_path = statistics.mode(r.capacity for r in results)
     if k_path not in pp_rows:
         raise AssertionError(f"the clip took ladder branch {k_path}, not "
                              f"one of the timed shapes {list(pp_rows)}")
-    kernels = report(dcn_rows, pp_rows[k_path], stats, build_s)
+    kernels = report(dcn_rows, pp_rows[k_path], sseg_row, sa_row,
+                     {"bf16": stats, "f32": stats32}, build_s)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

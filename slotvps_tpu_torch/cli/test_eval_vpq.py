@@ -39,6 +39,7 @@ from slotvps_tpu_torch.eval import vpq as vpq_mod
 from slotvps_tpu_torch.eval.fusion import inference_panoptic_video, unify_pan_result
 from slotvps_tpu_torch.inference import InferencePipeline
 from slotvps_tpu_torch.models.detector import init_model
+from slotvps_tpu_torch.utils.precision import setup_precision
 
 
 def parse_args(argv=None):
@@ -59,22 +60,27 @@ def parse_args(argv=None):
                    help="torch device; 'cuda' (the default) raises when "
                         "CUDA is absent")
     p.add_argument("--tuned", action="store_true",
-                   help="the port's kernel configuration: the hand-written "
-                        "Hopper DCN kernel in f32 (dcn_impl='pallas_f32') "
-                        "at per-level halos (2,3,4,6), fused_sseg off, "
-                        "the fused postprocess on the Hopper theta, claim, "
+                   help="the tuned stack of the JAX package's --tuned: "
+                        "bf16 activations (parameters, norm statistics and "
+                        "logits in f32), the bf16 Hopper DCN kernel "
+                        "(dcn_impl='pallas') at per-level halos (2,3,4,6), "
+                        "the semantic map from quarter-res logits on the "
+                        "fused upsample+argmax kernel (fused_sseg), and the "
+                        "fused postprocess on the Hopper theta, claim, "
                         "argmax and repair kernels (impl='fused', "
-                        "detect_capacity kept at the config's value, 64 "
-                        "by default) and f32 compute")
+                        "detect_capacity kept at the config's value, 64 by "
+                        "default); the Retriever stays plain "
+                        "(retriever_impl='jax')")
     return p.parse_args(argv)
 
 
 def tune_config(cfg):
+    """The JAX package's ``tune_config``, field for field."""
     m = cfg.model
     m = dataclasses.replace(
-        m, compute_dtype="float32",
+        m, compute_dtype="bfloat16",
         semantic_head=dataclasses.replace(
-            m.semantic_head, dcn_impl="pallas_f32", fused_sseg=False,
+            m.semantic_head, dcn_impl="pallas", fused_sseg=True,
             dcn_halo=(2, 3, 4, 6)[:m.semantic_head.num_levels]),
         postprocess=dataclasses.replace(m.postprocess, impl="fused"))
     return dataclasses.replace(cfg, model=m)
@@ -90,6 +96,7 @@ def resolve_device(name: str) -> torch.device:
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    setup_precision()
     cfg = named_config(args.config)
     if args.tuned:
         cfg = tune_config(cfg)

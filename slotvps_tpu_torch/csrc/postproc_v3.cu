@@ -1,7 +1,9 @@
-// Fused panoptic post-processing for Hopper: theta, claim, argmax, repair.
+// Fused panoptic post-processing for Hopper: theta, claim, argmax, repair
+// and the semantic argmax (sseg).
 //
 // Replaces the TPU kernels of slotvps_tpu/ops/pallas/postproc_v3.py:
-// theta_v3, claim_v3, argmax_v3 (per_tile=True) and repair_v3.  Each kernel
+// theta_v3, claim_v3, argmax_v3 (per_tile=True), repair_v3 and sseg_v3.
+// Each kernel
 // computes exactly what its plain version in
 // slotvps_tpu_torch/ops/postproc_v3.py computes.  Masks are slot-major at
 // low resolution, m [K, h, w] f32; every full-resolution map is row-major
@@ -96,22 +98,32 @@ __host__ __device__ inline size_t staged_smem_bytes(int K) {
 
 // R[(k*4 + pr)*SC + c] = row phase pr of low-res row i at local column c,
 // where c = 0 is column j0-1 and c = SW+1 is column j0+SW (both clamped).
+// Element (k, row, col) of m lies at m[k*sk + row*sr + col*sc]: slot-major
+// [K, h, w] masks (sk = h*w, sr = w, sc = 1) or NHWC [h, w, K] logits
+// (sk = 1, sr = w*K, sc = K).
 __device__ void stage_rows(const float* __restrict__ m, int K, int h, int w,
-                           int i, int j0, float* R) {
+                           size_t sk, size_t sr, size_t sc, int i, int j0,
+                           float* R) {
   const int ip = max(i - 1, 0);
   const int in = min(i + 1, h - 1);
   for (int e = threadIdx.x; e < K * SC; e += blockDim.x) {
     const int k = e / SC;
     const int c = e % SC;
     const int jj = min(max(j0 - 1 + c, 0), w - 1);
-    const float* mk = m + (size_t)k * h * w;
-    const float prev = mk[(size_t)ip * w + jj];
-    const float cent = mk[(size_t)i * w + jj];
-    const float next = mk[(size_t)in * w + jj];
+    const float* mk = m + (size_t)k * sk + (size_t)jj * sc;
+    const float prev = mk[(size_t)ip * sr];
+    const float cent = mk[(size_t)i * sr];
+    const float next = mk[(size_t)in * sr];
     float* r = R + (size_t)k * 4 * SC + c;
 #pragma unroll
     for (int p = 0; p < 4; ++p) r[p * SC] = lerp_phase(p, prev, cent, next);
   }
+}
+
+__device__ __forceinline__ void stage_rows(const float* __restrict__ m,
+                                           int K, int h, int w, int i, int j0,
+                                           float* R) {
+  stage_rows(m, K, h, w, (size_t)h * w, (size_t)w, 1, i, j0, R);
 }
 
 // Per-thread column phase of the staged kernels: its weights and which
@@ -237,6 +249,36 @@ argmax_kernel(const float* __restrict__ m, const int8_t* __restrict__ owner,
   __syncthreads();
   for (int k = threadIdx.x; k < K; k += blockDim.x)
     if (hist[k]) atomicAdd(&areas[(size_t)t * K + k], hist[k]);
+}
+
+// The semantic map: per full-res pixel, the first channel holding the max
+// of the x4-upsampled logits (torch.argmax's tie rule; the TPU kernel's
+// `vals >= mx` then min index).  x is NHWC [h, w, C] f32.
+__global__ void __launch_bounds__(NT)
+sseg_kernel(const float* __restrict__ x, int64_t* __restrict__ out, int C,
+            int h, int w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* R = reinterpret_cast<float*>(smem);
+  const int i = blockIdx.y;
+  const int j0 = blockIdx.x * SW;
+  stage_rows(x, C, h, w, 1, (size_t)w * C, (size_t)C, i, j0, R);
+  __syncthreads();
+
+  const int pr = threadIdx.x / FW;
+  const int xl = threadIdx.x % FW;
+  const int jl = xl >> 2;
+  const ColPhase cp(xl & 3);
+  if (j0 + jl >= w) return;
+  float best = 0.f;
+  int id = 0;
+  for (int k = 0; k < C; ++k) {
+    const float v = staged_value(R, k, pr, jl, cp);
+    if (k == 0 || v > best) {            // ties -> first channel
+      best = v;
+      id = k;
+    }
+  }
+  out[(size_t)(4 * i + pr) * (4 * (size_t)w) + 4 * j0 + xl] = id;
 }
 
 // Upsampled values of slot mk at the 4 full-res pixels (Y, 4j .. 4j+3).
@@ -434,6 +476,20 @@ extern "C" int pp_repair(const void* m, const void* owner, const void* m1,
       static_cast<const uint8_t*>(dirty), static_cast<const int32_t*>(m1),
       static_cast<const int32_t*>(areas_prev), static_cast<int32_t*>(m_id),
       static_cast<int32_t*>(areas), K, h, w, hb);
+  return (int)cudaGetLastError();
+}
+
+// The semantic map [4h, 4w] int64 of NHWC logits x [h, w, C] f32.
+extern "C" int pp_sseg(const void* x, void* out, int C, int h, int w,
+                       void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)sseg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(float) * (size_t)C * 4 * SC));
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((w + SW - 1) / SW, h);
+  sseg_kernel<<<grid, NT, sizeof(float) * (size_t)C * 4 * SC,
+                (cudaStream_t)stream>>>(static_cast<const float*>(x),
+                                        static_cast<int64_t*>(out), C, h, w);
   return (int)cudaGetLastError();
 }
 

@@ -69,7 +69,12 @@ class FrameResult(NamedTuple):
 
 
 class InferencePipeline:
-    """Streaming per-frame inference with carried video state."""
+    """Streaming per-frame inference with carried video state.
+
+    The pipeline leaves PyTorch's process-wide precision flags alone: on
+    the card, call :func:`slotvps_tpu_torch.utils.precision.setup_precision`
+    first (the CLI and ``chip_smoke.py`` do) so that f32 convolutions and
+    bf16 matmuls reduce in full f32, as the JAX package does."""
 
     def __init__(self, model: Detector, config: Config,
                  image_size: Optional[tuple] = None,

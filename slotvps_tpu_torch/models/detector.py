@@ -6,8 +6,11 @@ result is carried as the next frame's reference features) and
 ``decode_pair`` for the joint two-frame slot decode.
 
 Ported configuration space: the ResNet backbone without stage plugins or
-R52 stem, sine position embeddings and ``compute_dtype="float32"``; the
-rest raises ``NotImplementedError``.
+R52 stem, sine position embeddings, ``compute_dtype`` "float32" or
+"bfloat16" (parameters stay f32 and are cast to the activations' dtype),
+and ``slot_head.retriever_impl`` "jax" (plain slot attention) or "pallas"
+(the Hopper slot-attention kernel); the rest raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ from slotvps_tpu_torch.models.fpn import init_fpn
 from slotvps_tpu_torch.models.position_encoding import sine_position_embedding
 from slotvps_tpu_torch.models.resnet import init_resnet
 from slotvps_tpu_torch.models.semantic_head import init_semantic_head
-from slotvps_tpu_torch.models.slot_head import apply_slot_head, init_slot_head
+from slotvps_tpu_torch.models.slot_head import (apply_slot_head,
+                                                init_slot_head,
+                                                retriever_attention,
+                                                retriever_attention_pallas)
 from slotvps_tpu_torch.models.track_head import init_track_head
 
 
@@ -31,7 +37,9 @@ class FrameFeatures(NamedTuple):
     """Per-frame backbone-side features carried across video steps."""
 
     feat_trans: Tuple[torch.Tensor, ...]  # 4 levels, coarsest first, 128ch
-    fcn_output: torch.Tensor              # [B, H, W, 19] full-res logits
+    # [B, H, W, 19] full-res logits — or [B, H/4, W/4, 19] quarter-res
+    # when semantic_head.fused_sseg=True (postprocess fuses the upsample)
+    fcn_output: torch.Tensor
 
 
 class FrameOutputs(NamedTuple):
@@ -53,10 +61,11 @@ def check_supported(cfg: ModelConfig):
         unsupported.append("ResNet stage plugins / R52 stem")
     if cfg.pos_embedding not in ("sine", "v2"):
         unsupported.append(f"pos_embedding={cfg.pos_embedding!r}")
-    if cfg.compute_dtype != "float32":
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
         unsupported.append(f"compute_dtype={cfg.compute_dtype!r}")
-    if cfg.slot_head.retriever_impl != "jax":
-        unsupported.append("retriever_impl='pallas' (slot-attention kernel)")
+    if cfg.slot_head.retriever_impl not in ("jax", "pallas"):
+        unsupported.append(
+            f"retriever_impl={cfg.slot_head.retriever_impl!r}")
     if unsupported:
         raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
 
@@ -100,8 +109,9 @@ def extract_features(model: Detector, cfg: ModelConfig,
                      img: torch.Tensor) -> FrameFeatures:
     """Backbone -> FPN -> semantic head -> conv_trans for one frame batch.
 
-    img: [B, H, W, 3] normalized (NHWC)."""
-    img = img.float()
+    img: [B, H, W, 3] normalized (NHWC), cast here to
+    ``cfg.compute_dtype``; the semantic logits come back in f32."""
+    img = img.to(getattr(torch, cfg.compute_dtype))
     feats = model.backbone(img)
     fpn_outs = model.fpn(feats, num_outs=cfg.fpn.num_outs)
     fcn_output, _, feat_before = model.semantic_head(
@@ -126,11 +136,15 @@ def decode_pair(model: Detector, cfg: ModelConfig,
     (vps_temporal_slots.py:270-308 + generate_final_outputs :144-160)."""
     pos = _position_embeddings(cfg, cur_feats.feat_trans)
     ref_pos = _position_embeddings(cfg, ref_feats.feat_trans)
+    retriever_fn = (retriever_attention_pallas
+                    if cfg.slot_head.retriever_impl == "pallas"
+                    else retriever_attention)
     all_logits, all_embeds, all_feats = apply_slot_head(
         model.slot_head, cfg.slot_head,
         features=[list(ref_feats.feat_trans), list(cur_feats.feat_trans)],
         init_queries=model.init_mask_query,
-        pos=[ref_pos, pos])
+        pos=[ref_pos, pos],
+        retriever_fn=retriever_fn)
     logits = all_logits[1][-1]      # current frame, last stage [B, L, C]
     embeds = all_embeds[1][-1]      # [B, L, D]
     fine = _feat_norm(model, all_feats[1][-1])   # [B, h, w, D]

@@ -21,7 +21,9 @@ a pixel, so skipping it changes nothing).
 The fused path never builds that stack: four Hopper kernels
 (``ops/cuda/postproc_v3.py``; their plain versions on CPU tensors) compute
 theta, the claim loop, the masked argmax with per-tile areas, and each
-small-area iteration on the dirty row tiles only.  It runs on the slot
+small-area iteration on the dirty row tiles only.  Quarter-res semantic
+logits (``semantic_head.fused_sseg``) go to a fifth, ``sseg_hopper``, which
+upsamples and argmaxes them in one pass.  It runs on the slot
 prefix of the capacity ladder (``detect_capacity``).  Host syncs per
 frame: one for the valid-slot counts (ladder branch and claim range), one
 per small-area check (``n_loop + 1``) and one for the kept counts.
@@ -40,6 +42,7 @@ from slotvps_tpu_torch.config import PostprocessConfig
 from slotvps_tpu_torch.ops.cuda.postproc_v3 import (argmax_hopper,
                                                     claim_hopper,
                                                     repair_hopper,
+                                                    sseg_hopper,
                                                     theta_hopper)
 from slotvps_tpu_torch.ops.interpolate import (interpolate_bilinear,
                                                upsample_x4_bilinear)
@@ -256,15 +259,14 @@ def postprocess_frame(
     fused_ok = (cfg.impl == "fused" and cfg.apply_mask_removal
                 and (h, w) == (4 * pred_masks.shape[1],
                                4 * pred_masks.shape[2]))
+    # quarter-res semantic logits (semantic_head fused_sseg) go to the sseg
+    # kernel on the fused path; every other route keeps the reference
+    # staging: x4 upsample first, then resize to ori_shape
     fcn_quarter = tuple(fcn_output.shape[:2]) == tuple(pred_masks.shape[1:])
-    if fcn_quarter and fused_ok:
-        raise NotImplementedError(
-            "quarter-res semantic logits (semantic_head fused_sseg) on the "
-            "fused path need the sseg_v3 kernel, not ported yet")
-    # reference staging: x4 upsample first, then resize to ori_shape
-    if fcn_quarter:
+    if fcn_quarter and not fused_ok:
         fcn_output = upsample_x4_bilinear(fcn_output)
-    if tuple(fcn_output.shape[:2]) != (h, w):
+        fcn_quarter = False
+    if not fcn_quarter and tuple(fcn_output.shape[:2]) != (h, w):
         fcn_output = interpolate_bilinear(fcn_output, (h, w),
                                           align_corners=False)
 
@@ -281,7 +283,8 @@ def postprocess_frame(
     is_thing = classes > cfg.num_stuff - 1
 
     if fused_ok:
-        sseg = torch.argmax(fcn_output, dim=-1)
+        sseg = (sseg_hopper(fcn_output.float().contiguous()) if fcn_quarter
+                else torch.argmax(fcn_output, dim=-1))
         # one host sync: the slot order is valid stuff, valid things,
         # invalid, so these two counts give the ladder branch and the
         # claim loop's range

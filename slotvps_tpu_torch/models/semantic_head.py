@@ -14,10 +14,14 @@ strings, with these meanings:
 * ``"jax"``        — the plain PyTorch DCN (``ops/deform_conv.py``), halo
   ``dcn_halo or 8``;
 * ``"pallas_f32"`` — the hand-written Hopper kernel in f32
-  (``ops/cuda/deform_conv.py``), halo ``dcn_halo or 4``.  On CPU tensors
-  its wrapper runs the plain version;
-* ``"pallas"``     — the bf16 kernel, not ported yet: raises
-  ``NotImplementedError``.
+  (``ops/cuda/deform_conv.py``), halo ``dcn_halo or 4``;
+* ``"pallas"``     — the same kernel in bf16, halo ``dcn_halo or 4``.
+
+On the two kernel routes the input, the offsets and the weight go to the
+kernel in the route's dtype (f32 for "pallas_f32", bf16 for "pallas"); in
+the bf16 model the offsets come out of the offset conv in bf16 and are
+widened to f32 only for sampling, as in the JAX package.  On CPU tensors
+the wrapper runs the plain version at that dtype.
 """
 
 from __future__ import annotations
@@ -47,16 +51,14 @@ class DCNBlock(nn.Module):
     def forward(self, x, gn_groups, impl="jax", halo=0):
         offset = self.offset(x, padding=1)
         weight = self.conv.weight.permute(2, 3, 1, 0)  # -> [3, 3, Cin, Cout]
-        if impl == "pallas_f32":
-            out = deform_conv2d_hopper(x.contiguous(), offset.contiguous(),
-                                       weight.contiguous(), halo or 4)
+        if impl in ("pallas", "pallas_f32"):
+            dtype = torch.bfloat16 if impl == "pallas" else torch.float32
+            out = deform_conv2d_hopper(
+                x.to(dtype).contiguous(), offset.to(dtype).contiguous(),
+                weight.to(dtype).contiguous(), halo or 4).to(x.dtype)
         elif impl == "jax":
             out = deform_conv2d(x, offset, weight, padding=1,
                                 max_displacement=halo or 8)
-        elif impl == "pallas":
-            raise NotImplementedError(
-                "dcn_impl='pallas' (bf16 DCN kernel) is not ported yet; "
-                "use 'pallas_f32' or 'jax'")
         else:
             raise ValueError(f"unknown dcn_impl {impl!r}")
         out = L.group_norm(out, self.gn.weight, self.gn.bias,

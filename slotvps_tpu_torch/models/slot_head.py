@@ -9,6 +9,13 @@ self-attention -> Retriever cross-attention (softmax over SLOTS) -> FFN,
 each with residual + LayerNorm; the temporal stages then run the Video
 Retriever over both frames' slots.  Frames ride the batch axis for the
 dense work.
+
+The Retriever's attention core has two routes, picked by
+``SlotHeadConfig.retriever_impl`` in ``detector.decode_pair``:
+:func:`retriever_attention` (plain PyTorch in the activations' dtype, the
+JAX package's ``"jax"`` route) and :func:`retriever_attention_pallas` (the
+Hopper slot-attention kernel, ``ops/cuda/slot_attention.py``, with the
+JAX Pallas kernel's numerics: f32 scores, softmax and output).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch.nn as nn
 
 from slotvps_tpu_torch.config import SlotHeadConfig
 from slotvps_tpu_torch.models import layers as L
+from slotvps_tpu_torch.ops.cuda.slot_attention import slot_attention_hopper
 from slotvps_tpu_torch.ops.interpolate import upsample_int_bilinear
 
 # ---------------------------------------------------------------------------
@@ -131,6 +139,27 @@ def retriever_attention(p: Retriever, slots, features, pos,
     return L.relu(p.norm1(out))
 
 
+def retriever_attention_pallas(p: Retriever, slots, features, pos,
+                               softmax_dim="slots"):
+    """:func:`retriever_attention` with the attention core on the
+    slot-attention kernel (``slotvps_tpu/ops/pallas/slot_attention.py``
+    ``retriever_attention_pallas``): f32 scores from the activations, the
+    per-pixel softmax over slots in f32, the f32 output cast back to the
+    slots' dtype."""
+    if softmax_dim != "slots":
+        raise ValueError("the slot-attention kernel implements the softmax "
+                         f"over slots, not {softmax_dim!r}")
+    q = p.norm_q(p.to_q(slots))
+    k_in = features if pos is None else features + pos.to(features.dtype)
+    k = p.norm_k(p.to_k(k_in))
+    v = p.norm_v(p.to_v(features))
+    b, h, w, d = k.shape
+    out = slot_attention_hopper(q.contiguous(),
+                                k.reshape(b, h * w, d).contiguous(),
+                                v.reshape(b, h * w, d).contiguous())
+    return L.relu(p.norm1(out.to(q.dtype)))
+
+
 def slots_attention(p: Retriever, q_slots, kv_slots, softmax_dim="slots"):
     """SlotsDynamicConv (reference dynamic_mask_head.py:550-572)."""
     q = p.norm_q(p.to_q(q_slots))
@@ -153,13 +182,14 @@ def _temporal_head(p: TemporalHead, slots, cfg: SlotHeadConfig):
     return p.norm3(slots + ffn)
 
 
-def _stage_till_ffn(p: Stage, features, slots, pos, cfg: SlotHeadConfig):
+def _stage_till_ffn(p: Stage, features, slots, pos, cfg: SlotHeadConfig,
+                    retriever_fn):
     """Self-attn + Retriever + FFN (reference :342-388)."""
     act = L.ACTIVATIONS[cfg.activation]
     attn_out = p.self_attn(slots, slots, slots, cfg.nhead)
     slots = p.norm1(slots + attn_out)
-    inter = retriever_attention(p.inst_interact, slots, features, pos,
-                                cfg.softmax_dim)
+    inter = retriever_fn(p.inst_interact, slots, features, pos,
+                         cfg.softmax_dim)
     slots = p.norm2(slots + inter)
     ffn = p.linear2(act(p.linear1(slots)))
     return p.norm3(slots + ffn)
@@ -182,12 +212,15 @@ def apply_slot_head(
     features: Sequence[Sequence[torch.Tensor]],
     init_queries: torch.Tensor,
     pos: Sequence[Sequence[torch.Tensor]],
+    retriever_fn=retriever_attention,
 ) -> Tuple[list, list, list]:
     """Run the 7-stage decoder over ``F`` frames jointly.
 
     features: per frame, per level [B, H, W, 128] (coarsest first).
     init_queries: [L, D] learned slot queries (shared across frames).
     pos: per frame, per level [H, W, D] sine embeddings.
+    retriever_fn: the Retriever (:func:`retriever_attention` or
+    :func:`retriever_attention_pallas`).
 
     Returns per frame: stacked class logits [S, B, L, C], stacked slot
     embeddings [S, B, L, D], and the per-level updated 256-ch features.
@@ -228,7 +261,7 @@ def apply_slot_head(
             sp = model.stages[stage_idx]
             slots_f = [
                 _stage_till_ffn(sp, frame_feats[f], queries[f], pos[f][lvl],
-                                cfg)
+                                cfg, retriever_fn)
                 for f in range(n_frames)
             ]
             if sp.temporal is not None:

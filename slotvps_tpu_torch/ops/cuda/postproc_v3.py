@@ -5,7 +5,7 @@
 its plain version in :mod:`slotvps_tpu_torch.ops.postproc_v3`:
 
 * :func:`theta_hopper`, :func:`claim_hopper`, :func:`argmax_hopper`,
-  :func:`repair_hopper`.
+  :func:`repair_hopper`, :func:`sseg_hopper`.
 
 On CPU tensors a wrapper runs the plain version; on CUDA tensors it
 launches its kernel or raises — there is no fallback.  Each kernel launch
@@ -34,7 +34,9 @@ def _declare(lib: ctypes.CDLL):
     lib.pp_claim.argtypes = [p, p, p, p, f, i, i, i, i, i, p, p, p, p]
     lib.pp_argmax.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.pp_repair.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
-    for fn in (lib.pp_theta, lib.pp_claim, lib.pp_argmax, lib.pp_repair):
+    lib.pp_sseg.argtypes = [p, p, i, i, i, p]
+    for fn in (lib.pp_theta, lib.pp_claim, lib.pp_argmax, lib.pp_repair,
+               lib.pp_sseg):
         fn.restype = i
     lib.pp_error_string.argtypes = [i]
     lib.pp_error_string.restype = ctypes.c_char_p
@@ -221,5 +223,34 @@ def repair_hopper(m_klow: torch.Tensor, owner: torch.Tensor,
     return m_id, areas
 
 
-for _fn in (theta_hopper, claim_hopper, argmax_hopper, repair_hopper):
+def sseg_hopper(score_hwc: torch.Tensor) -> torch.Tensor:
+    """The semantic map [4h, 4w] int64 of quarter-res logits [h, w, C] f32
+    (see :func:`plain.sseg`)."""
+    if score_hwc.device.type == "cpu":
+        return plain.sseg(score_hwc)
+    if score_hwc.device.type != "cuda":
+        raise ValueError("sseg_hopper: the logits must lie on a CUDA device "
+                         "(or on the CPU)")
+    if score_hwc.ndim != 3 or score_hwc.dtype != torch.float32 \
+            or not score_hwc.is_contiguous():
+        raise TypeError("sseg_hopper: the logits must be a contiguous "
+                        f"float32 [h, w, C] tensor, got {score_hwc.dtype} "
+                        f"{tuple(score_hwc.shape)}")
+    h, w, c = score_hwc.shape
+    if not 1 <= c <= MAX_SLOTS:
+        raise ValueError(f"sseg_hopper: C={c} channels; the kernel takes "
+                         f"1...{MAX_SLOTS}")
+    dev = score_hwc.device
+    out = torch.empty((4 * h, 4 * w), dtype=torch.int64, device=dev)
+    lib = LIBRARY.load()
+    with torch.cuda.device(dev):
+        rc = lib.pp_sseg(score_hwc.data_ptr(), out.data_ptr(), c, h, w,
+                         _stream(dev))
+    _raise_on(rc, "pp_sseg")
+    sseg_hopper.launches += 1
+    return out
+
+
+for _fn in (theta_hopper, claim_hopper, argmax_hopper, repair_hopper,
+            sseg_hopper):
     _fn.launches = 0

@@ -1,0 +1,90 @@
+"""Hopper slot-attention kernel: library and wrapper.
+
+``csrc/slot_attention.cu`` is built and loaded by :class:`KernelLibrary`
+(``ops/cuda/build.py``).  :func:`slot_attention_hopper` has the signature
+of its plain version, :func:`slotvps_tpu_torch.ops.slot_attention.
+slot_attention`.  On CPU tensors it runs the plain version; on CUDA tensors
+it launches the kernel or raises — there is no fallback.  Its contract on
+the card: bf16 q [B, L, 256] with 1 <= L <= 128, bf16 k and v [B, P, 256];
+it returns f32 [B, L, 256].
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from slotvps_tpu_torch.ops.cuda.build import KernelLibrary
+from slotvps_tpu_torch.ops.slot_attention import slot_attention
+
+MAX_SLOTS = 128
+CHANNELS = 256
+
+
+def _declare(lib: ctypes.CDLL):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sa_forward_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.sa_forward_bf16.restype = i
+    lib.sa_tile_pixels.argtypes = []
+    lib.sa_tile_pixels.restype = i
+    lib.sa_error_string.argtypes = [i]
+    lib.sa_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = KernelLibrary("slot_attention", _declare)
+
+
+def slot_attention_hopper(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """out [B, L, C] f32 = sum_p softmax over the L slots (q . k_p) v_p.
+
+    Each call on the card launches the kernel's two passes (partial sums
+    over pixel runs, then their sum in a fixed order) and adds one to
+    ``slot_attention_hopper.launches``."""
+    tensors = (q, k, v)
+    if all(t.device.type == "cpu" for t in tensors):
+        return slot_attention(q, k, v)
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("slot_attention_hopper: q, k and v must all lie on "
+                         "one CUDA device (or all on the CPU)")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError("slot_attention_hopper takes bfloat16 q, k and v on "
+                        f"the card, got {[str(t.dtype) for t in tensors]}")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("slot_attention_hopper takes contiguous, 16-byte "
+                         "aligned tensors")
+    if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape:
+        raise ValueError(f"bad shapes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    b, n_slots, c = q.shape
+    n_pix = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != c:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    if c != CHANNELS or not 1 <= n_slots <= MAX_SLOTS or n_pix < 1:
+        raise ValueError(f"slot_attention_hopper takes C = {CHANNELS}, "
+                         f"1 <= L <= {MAX_SLOTS} and P >= 1; got C = {c}, "
+                         f"L = {n_slots}, P = {n_pix}")
+
+    lib = LIBRARY.load()
+    n_tiles = -(-n_pix // lib.sa_tile_pixels())
+    n_runs = min(n_tiles,
+                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty((b, n_slots, c), dtype=torch.float32, device=dev)
+    part = torch.empty((b, n_runs, n_slots, c), dtype=torch.float32,
+                       device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.sa_forward_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 out.data_ptr(), part.data_ptr(), b, n_slots,
+                                 n_pix, n_runs,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("sa_forward_bf16 launch failed: "
+                           + lib.sa_error_string(rc).decode())
+    slot_attention_hopper.launches += 1
+    return out
+
+
+slot_attention_hopper.launches = 0

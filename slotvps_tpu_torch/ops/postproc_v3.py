@@ -1,7 +1,7 @@
 """Fused panoptic post-processing, plain PyTorch versions (counterpart of
 ``slotvps_tpu/ops/pallas/postproc_v3.py``).
 
-Four functions of whole tensors, each the plain version of one hand-written
+Five functions of whole tensors, each the plain version of one hand-written
 Hopper kernel (``ops/cuda/postproc_v3.py``) and of one TPU kernel:
 
 * :func:`theta`  — per-pixel binarization threshold
@@ -11,7 +11,9 @@ Hopper kernel (``ops/cuda/postproc_v3.py``) and of one TPU kernel:
 * :func:`argmax` — masked per-pixel argmax with per-tile per-slot areas
   (``argmax_v3(per_tile=True)``),
 * :func:`repair` — one small-area-filter iteration that recomputes the
-  argmax on dirty row tiles only (``repair_v3``).
+  argmax on dirty row tiles only (``repair_v3``);
+* :func:`sseg`   — the semantic map of quarter-res logits: x4 upsample and
+  channel argmax (``sseg_v3``).
 
 Masks arrive slot-major at low resolution, ``m_klow [K, h, w]`` f32; every
 full-resolution map is row-major ``[4h, 4w]``.  (The TPU kernels' phase-
@@ -143,3 +145,10 @@ def repair(m_klow: torch.Tensor, owner: torch.Tensor, m1: torch.Tensor,
     rows = dirty.repeat_interleave(4 * hb)[:, None]
     return (torch.where(rows, m_new, m1),
             torch.where(dirty[:, None], areas_new, areas_tile_prev))
+
+
+def sseg(score_hwc: torch.Tensor) -> torch.Tensor:
+    """The semantic map of quarter-res logits ``score_hwc`` [h, w, C] f32:
+    ``argmax(upsample_x4_bilinear(score), -1)`` [4h, 4w] int64, ties to the
+    first channel."""
+    return torch.argmax(upsample_x4_bilinear(score_hwc.float()), dim=-1)

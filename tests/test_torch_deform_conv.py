@@ -113,11 +113,19 @@ def test_zero_offsets_is_plain_conv(rng):
 
 def test_wrapper_runs_plain_version_on_cpu(rng):
     x, off, wt = _case(rng, 1, 6, 10, 4, 8, off_scale=2.0)
-    before = deform_conv2d_hopper.launches
+    before = dict(deform_conv2d_hopper.launches)
     with torch.no_grad():
         out = deform_conv2d_hopper(torch.from_numpy(x), torch.from_numpy(off),
                                    torch.from_numpy(wt), 3)
+        out16 = deform_conv2d_hopper(
+            *(torch.from_numpy(a).to(torch.bfloat16) for a in (x, off, wt)),
+            3)
     np.testing.assert_array_equal(out.numpy(), _port(x, off, wt, 3))
+    # in bf16: the plain version at compute_dtype=bfloat16
+    ref16 = deform_conv2d(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (x, off, wt)),
+        padding=1, max_displacement=3, compute_dtype=torch.bfloat16)
+    assert out16.dtype == torch.bfloat16 and torch.equal(out16, ref16)
     assert deform_conv2d_hopper.launches == before   # no kernel launched
 
 
@@ -133,8 +141,9 @@ def test_wrapper_is_forward_only(rng):
 
 
 def test_semantic_head_dcn_impl_strings(rng):
-    """'jax' = plain, 'pallas_f32' = the kernel's wrapper, 'pallas' (bf16)
-    is not ported yet."""
+    """'jax' = plain, 'pallas_f32' = the kernel's wrapper in f32, 'pallas'
+    = the wrapper in bf16 (the plain bf16 DCN on CPU tensors), with the
+    offsets rounded to bf16 as a bf16 offset conv gives them."""
     from slotvps_tpu_torch.models.semantic_head import DCNBlock
 
     blk = DCNBlock(torch.Generator().manual_seed(0), 32, 32)
@@ -146,5 +155,15 @@ def test_semantic_head_dcn_impl_strings(rng):
         a = blk(x, 32, impl="jax", halo=3)
         b = blk(x, 32, impl="pallas_f32", halo=3)
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-        with pytest.raises(NotImplementedError):
-            blk(x, 32, impl="pallas", halo=3)
+        c = blk(x, 32, impl="pallas", halo=3)
+        assert c.dtype == torch.float32
+        off = blk.offset(x, padding=1).to(torch.bfloat16)
+        dcn = deform_conv2d(x.to(torch.bfloat16), off,
+                            blk.conv.weight.permute(2, 3, 1, 0),
+                            max_displacement=3,
+                            compute_dtype=torch.bfloat16).float()
+        from slotvps_tpu_torch.models import layers as L
+        want = L.relu(L.group_norm(dcn, blk.gn.weight, blk.gn.bias, 32))
+        np.testing.assert_array_equal(c.numpy(), want.numpy())
+        with pytest.raises(ValueError, match="unknown dcn_impl"):
+            blk(x, 32, impl="cuda", halo=3)

@@ -1,6 +1,6 @@
 """The Hopper kernels against their plain PyTorch versions, on the card:
-the DCN kernel and the four fused-postprocess kernels (theta, claim,
-argmax, repair).
+the DCN kernel in f32 and bf16, the five fused-postprocess kernels (theta,
+claim, argmax, repair, sseg) and the slot-attention kernel.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the tests' conftest helpers, so it also runs on a
@@ -8,9 +8,12 @@ machine without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: DCN max |kernel - plain| <= 1e-4 * max |plain| (f32 sums taken
-in another order); theta within 1e-5 * max(1, |theta|) (the sum of exp in
-another order); the integer outputs of claim, argmax and repair are
+Tolerances: DCN max |kernel - plain| <= 1e-4 * max |plain| in f32 (sums
+taken in another order) and <= 1e-2 * max |plain| in bf16 (the same three
+bf16 rounding points; a sum in another order moves a rounded value by one
+bf16 ulp now and then); slot attention <= 1e-4 * max |plain| (f32 sums in
+another order); theta within 1e-5 * max(1, |theta|) (the sum of exp in
+another order); the integer outputs of claim, argmax, repair and sseg are
 bit-identical, given identical inputs."""
 
 import pytest
@@ -19,15 +22,17 @@ import torch
 from slotvps_tpu_torch.ops import postproc_v3 as plain
 from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
 from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
+from slotvps_tpu_torch.ops.cuda.slot_attention import slot_attention_hopper
 from slotvps_tpu_torch.ops.deform_conv import deform_conv2d
+from slotvps_tpu_torch.ops.slot_attention import slot_attention
+from slotvps_tpu_torch.utils.precision import setup_precision
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    setup_precision()
     return torch.device("cuda")
 
 
@@ -49,14 +54,77 @@ def _case(dev, b, h, w, c, co, halo):
 def test_kernel_matches_plain(cuda_device, shape):
     b, h, w, c, co, halo = shape
     x, off, wt = _case(cuda_device, b, h, w, c, co, halo or 1)
-    before = deform_conv2d_hopper.launches
+    before = deform_conv2d_hopper.launches["float32"]
     with torch.no_grad():
         out = deform_conv2d_hopper(x, off, wt, halo)
         ref = deform_conv2d(x, off, wt, padding=1, max_displacement=halo)
     torch.cuda.synchronize()
-    assert deform_conv2d_hopper.launches == before + 1
+    assert deform_conv2d_hopper.launches["float32"] == before + 1
     err = float((out - ref).abs().max())
     assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 32, 64, 256, 256, 6),    # P5 of a 1024x2048 frame
+    (1, 64, 128, 256, 128, 4),   # P4, 256 -> 128
+    (2, 13, 70, 128, 128, 2),    # ragged pixel strip, batch of 2
+    (1, 9, 40, 20, 20, 3),       # Cin, Cout not multiples of the tiles
+    (1, 5, 7, 8, 6, 0),          # halo 0: integer-only sampling
+])
+def test_bf16_kernel_matches_plain(cuda_device, shape):
+    b, h, w, c, co, halo = shape
+    x, off, wt = (t.to(torch.bfloat16) for t in
+                  _case(cuda_device, b, h, w, c, co, halo or 1))
+    before = dict(deform_conv2d_hopper.launches)
+    with torch.no_grad():
+        out = deform_conv2d_hopper(x, off, wt, halo)
+        ref = deform_conv2d(x, off, wt, padding=1, max_displacement=halo,
+                            compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert deform_conv2d_hopper.launches == dict(
+        before, bfloat16=before["bfloat16"] + 1)
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 100, 2048), (1, 100, 8192),
+                                   (2, 20, 1000), (1, 128, 33), (1, 1, 64)])
+def test_slot_attention_kernel_matches_plain(cuda_device, shape):
+    b, n_slots, n_pix = shape
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device)
+               .to(torch.bfloat16) for s in ((b, n_slots, 256),
+                                             (b, n_pix, 256),
+                                             (b, n_pix, 256)))
+    before = slot_attention_hopper.launches
+    out = slot_attention_hopper(q, k, v)
+    ref = slot_attention(q, k, v)
+    again = slot_attention_hopper(q, k, v)
+    torch.cuda.synchronize()
+    assert slot_attention_hopper.launches == before + 2
+    assert out.dtype == torch.float32 and out.shape == (b, n_slots, 256)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+    assert torch.equal(out, again)   # a fixed order of sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512, 19), (12, 20, 19), (7, 33, 3)])
+def test_sseg_kernel_matches_plain(cuda_device, shape):
+    h, w, c = shape
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((h, w, c), generator=g, device=cuda_device)
+    x[..., c // 2] = x[..., 0]               # ties: the first channel wins
+    x[: h // 2, : w // 3, :] = 0.25
+    before = hv3.sseg_hopper.launches
+    out = hv3.sseg_hopper(x)
+    ref = plain.sseg(x)
+    torch.cuda.synchronize()
+    assert hv3.sseg_hopper.launches == before + 1
+    assert out.dtype == torch.int64 and torch.equal(out, ref)
 
 
 @pytest.mark.cuda
@@ -66,8 +134,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         with pytest.raises(ValueError, match="contiguous"):
             deform_conv2d_hopper(x.transpose(1, 2), off.transpose(1, 2),
                                  wt, 2)
-        with pytest.raises(TypeError, match="float32"):
+        with pytest.raises(TypeError, match="bfloat16"):
             deform_conv2d_hopper(x.half(), off, wt, 2)
+        with pytest.raises(TypeError, match="one dtype"):
+            deform_conv2d_hopper(x.bfloat16(), off, wt, 2)
         with pytest.raises(ValueError, match="one CUDA device"):
             deform_conv2d_hopper(x, off.cpu(), wt, 2)
         with pytest.raises(ValueError, match="multiple of 4"):
@@ -171,3 +241,10 @@ def test_postproc_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         hv3.claim_hopper(m, th[:, :-1], labels, is_thing, valid, 0.03)
     with pytest.raises(ValueError, match="owner"):
         hv3.argmax_hopper(m, th, valid, is_thing)
+    with pytest.raises(TypeError, match="float32"):
+        hv3.sseg_hopper(m.permute(1, 2, 0).contiguous().double())
+    q = torch.zeros((1, 129, 256), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="L <= 128"):
+        slot_attention_hopper(q, q, q)
+    with pytest.raises(TypeError, match="bfloat16"):
+        slot_attention_hopper(q[:, :8].float(), q.float(), q.float())

@@ -196,8 +196,12 @@ def test_track_head(pair):
 
 def test_unported_configuration_raises():
     cfg = tiny_model_cfg(config=tconfig)
-    for bad in (dataclasses.replace(cfg, compute_dtype="bfloat16"),
+    for bad in (dataclasses.replace(cfg, compute_dtype="float16"),
                 dataclasses.replace(cfg, backbone="swin"),
                 dataclasses.replace(cfg, pos_embedding="learned")):
         with pytest.raises(NotImplementedError):
             tdet.check_supported(bad)
+    # the tuned stack's dtype and Retriever route are ported
+    tdet.check_supported(dataclasses.replace(
+        cfg, compute_dtype="bfloat16", slot_head=dataclasses.replace(
+            cfg.slot_head, retriever_impl="pallas")))

@@ -166,9 +166,15 @@ def test_wrappers_reject_mixed_devices_and_bad_maps():
 
 # ---- the whole fused path against the JAX package's ----
 
-def _frame(logits, masks, seed):
+def _frame(logits, masks, seed, quarter=False):
+    """Semantic logits full-res, or (``quarter``) at the masks' low
+    resolution, as semantic_head fused_sseg ships them, with ties: channel
+    9 copies channel 2."""
     rng = np.random.default_rng(seed)
-    fcn = rng.standard_normal((*OUT, 19)).astype(np.float32)
+    size = masks.shape[1:] if quarter else OUT
+    fcn = rng.standard_normal((*size, 19)).astype(np.float32)
+    if quarter:
+        fcn[..., 9] = fcn[..., 2]
     emb = rng.standard_normal((masks.shape[0], D)).astype(np.float32)
     return logits, masks, emb, fcn
 
@@ -188,7 +194,9 @@ def _confident(rng, n_valid, masks=None):
 def assert_fused_matches_jax(frame, jcfg: JaxPostprocessConfig):
     """The port's impl="fused" and the JAX package's (interpret mode) on
     the same frame: equal kept, panoptic, thing_rank, sseg, n_kept,
-    n_things and n_loop.  Returns the port's result."""
+    n_things and n_loop.  Quarter-res semantic logits in ``frame`` go to
+    ``sseg_v3`` on the JAX side and to ``sseg_hopper`` (its plain version
+    on CPU tensors) on the port's.  Returns the port's result."""
     tcfg = PostprocessConfig(**dataclasses.asdict(jcfg))
     assert tcfg.impl == "fused"
     with pltpu.force_tpu_interpret_mode():
@@ -215,3 +223,16 @@ def test_fused_ladder_capacity_8(n_valid, capacity):
     ours = assert_fused_matches_jax(_frame(logits, masks, n_valid), CAP8)
     assert ours.capacity == capacity
     assert ours.n_things > 0 and ours.kept.shape == (K,)
+
+
+@pytest.mark.parametrize("n_valid", [5, 13])
+def test_fused_quarter_res_semantics(n_valid):
+    """semantic_head fused_sseg: quarter-res logits [16, 24, 19] on the
+    fused path (sseg_v3 / sseg_hopper), ties included, both ladder
+    branches of detect_capacity 8."""
+    rng = np.random.default_rng(100 + n_valid)
+    logits, masks = _confident(rng, n_valid)
+    frame = _frame(logits, masks, n_valid, quarter=True)
+    assert frame[3].shape == (16, 24, 19)
+    ours = assert_fused_matches_jax(frame, CAP8)
+    assert ours.sseg.shape == OUT and ours.n_things > 0

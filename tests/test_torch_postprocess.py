@@ -128,17 +128,29 @@ def test_dedup_map_high_class_ids():
 @pytest.mark.parametrize("impl", ["fused", "pallas"])
 def test_kernel_routes_not_ported_yet(impl):
     """impl='pallas' needs the claim-scan kernel, not ported; the fused
-    path is ported, but quarter-res semantic logits on it need the sseg_v3
-    kernel (semantic_head fused_sseg), not ported either."""
+    path, quarter-res semantic logits included (semantic_head fused_sseg:
+    the sseg kernel's wrapper, its plain version on CPU), is ported and
+    gives the semantic map of the reference staging."""
     rng = np.random.default_rng(0)
     logits, masks, cfg = _case(rng)
-    fcn = torch.zeros((16, 24, 19)) if impl == "fused" \
-        else torch.zeros((64, 96, 19))
-    match = "sseg_v3" if impl == "fused" else "claim-scan"
-    with pytest.raises(NotImplementedError, match=match):
-        postprocess_frame(torch.from_numpy(logits), torch.from_numpy(masks),
-                          torch.zeros((K, D)), fcn, (64, 96),
-                          _port_cfg(dataclasses.replace(cfg, impl=impl)))
+    fcn = torch.from_numpy(rng.standard_normal((16, 24, 19)).astype(
+        np.float32)) if impl == "fused" else torch.zeros((64, 96, 19))
+    args = (torch.from_numpy(logits), torch.from_numpy(masks),
+            torch.zeros((K, D)), fcn, (64, 96))
+    if impl == "pallas":
+        with pytest.raises(NotImplementedError, match="claim-scan"):
+            postprocess_frame(*args, _port_cfg(dataclasses.replace(
+                cfg, impl=impl)))
+        return
+    from slotvps_tpu_torch.ops.interpolate import upsample_x4_bilinear
+
+    r = postprocess_frame(*args, _port_cfg(dataclasses.replace(
+        cfg, impl=impl)))
+    ref = postprocess_frame(*args, _port_cfg(dataclasses.replace(
+        cfg, impl="jax")))
+    assert torch.equal(r.sseg, torch.argmax(upsample_x4_bilinear(fcn), -1))
+    assert torch.equal(r.sseg, ref.sseg)
+    assert torch.equal(r.panoptic, ref.panoptic)
 
 
 # ---- the fused path against the JAX package's (Pallas interpret mode) ----

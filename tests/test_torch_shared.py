@@ -32,6 +32,21 @@ def test_named_configs_match(name):
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_tune_config_matches_jax(name):
+    """The port's --tuned configuration is the JAX package's, field for
+    field: bf16, the bf16 DCN route, fused_sseg, per-level halos, the fused
+    postprocess, the Retriever left at "jax"."""
+    from slotvps_tpu.cli.test_eval_vpq import tune_config as jax_tune
+    from slotvps_tpu_torch.cli.test_eval_vpq import tune_config
+
+    ours = tune_config(tconfig.named_config(name))
+    ref = jax_tune(jconfig.named_config(name))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.model.compute_dtype == "bfloat16"
+    assert ours.model.slot_head.retriever_impl == "jax"
+
+
 def test_track_state_ids_match():
     rng = np.random.default_rng(0)
     ours, ref = ttracking.TrackState(), jtracking.TrackState()

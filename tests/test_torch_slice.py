@@ -212,7 +212,7 @@ def test_pipeline_counts_kernel_launches_only_on_cuda(calibrated):
     chip_smoke.py asserts 12 launches per frame on the card."""
     _, params, _ = calibrated
     tcfg = tconfig.Config(model=tiny_model_cfg("pallas_f32", tconfig))
-    before = deform_conv2d_hopper.launches
+    before = dict(deform_conv2d_hopper.launches)
     res = InferencePipeline(port_model(params, tcfg.model),
                             tcfg).process_frame(_clip(5, 1)[0], True)
     assert res.panoptic.shape == (H, W)
@@ -281,9 +281,36 @@ def test_cli_streaming_eval(tmp_path, monkeypatch):
                        "pred.json").read_text())
     assert len(pred["annotations"]) == 2
     tuned = cli.tune_config(base).model
-    assert tuned.semantic_head.dcn_impl == "pallas_f32"
+    assert tuned.compute_dtype == "bfloat16"
+    assert tuned.semantic_head.dcn_impl == "pallas"
+    assert tuned.semantic_head.fused_sseg
+    assert tuned.slot_head.retriever_impl == "jax"
     assert tuned.postprocess.impl == "fused"
     assert tuned.postprocess.detect_capacity == 64
+
+
+def test_cli_sets_the_precision_flags(tmp_path):
+    """The CLI's main turns TF32 and the bf16 reduced-precision reduction
+    off (slotvps_tpu_torch/utils/precision.py) before it reads any data;
+    the flags need no CUDA device."""
+    from slotvps_tpu_torch.cli import test_eval_vpq as cli
+
+    flags = (torch.backends.cudnn, "allow_tf32"), \
+        (torch.backends.cuda.matmul, "allow_tf32"), \
+        (torch.backends.cuda.matmul,
+         "allow_bf16_reduced_precision_reduction")
+    saved = [getattr(obj, name) for obj, name in flags]
+    try:
+        for obj, name in flags:
+            setattr(obj, name, True)
+        with pytest.raises(FileNotFoundError):
+            cli.main(["--device", "cpu", "--ann_file",
+                      str(tmp_path / "missing.json"), "--img_prefix",
+                      str(tmp_path), "--out", str(tmp_path / "o.pkl")])
+        assert [getattr(obj, name) for obj, name in flags] == [False] * 3
+    finally:
+        for (obj, name), value in zip(flags, saved):
+            setattr(obj, name, value)
 
 
 def test_cli_device_flag():
