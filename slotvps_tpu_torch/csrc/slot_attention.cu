@@ -16,10 +16,12 @@
 //
 // What bounds it on the card: one 1024x2048 frame runs it 14 times (7
 // decoder stages x 2 frames) over P = 2048 .. 131072 pixels, 4*L*C*sum(P)
-// = ~71 GFLOP and ~0.71 GB of k and v: 0.21 ms of HBM, 1.06 ms of f32 FMA
-// at 67 TFLOP/s.  Both products run in f32 FMA outside the tensor cores,
-// the second because p stays f32 (rounding p to bf16 to use the tensor
-// cores would change the function); so the f32 FMA rate bounds it.
+// = ~71 GFLOP and ~0.71 GB of k and v (0.21 ms of HBM).  Half the flops,
+// q.k, take bf16 inputs with f32 sums: the tensor cores' type, 0.036 ms at
+// 989 TFLOP/s.  The other half, p.v, keeps p in f32 (rounding p to bf16
+// would change the function): 0.53 ms of f32 FMA at 67 TFLOP/s.  So the
+// card's bound is ~0.57 ms, set by p.v.  This kernel runs q.k in f32 FMA
+// as well, outside the tensor cores, which the bound does not grant it.
 //
 // Design (simple first).  Pass 1: grid (G, B), G <= the SM count; block g
 // owns a contiguous run of T-pixel tiles and keeps q^T (bf16, padded to 128

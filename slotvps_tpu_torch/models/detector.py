@@ -8,9 +8,9 @@ result is carried as the next frame's reference features) and
 Ported configuration space: the ResNet backbone without stage plugins or
 R52 stem, sine position embeddings, ``compute_dtype`` "float32" or
 "bfloat16" (parameters stay f32 and are cast to the activations' dtype),
-and ``slot_head.retriever_impl`` "jax" (plain slot attention) or "pallas"
-(the Hopper slot-attention kernel); the rest raises
-``NotImplementedError``.
+and ``slot_head.retriever_impl`` "jax" (plain slot attention) or, with
+bf16 compute only, "pallas" (the Hopper slot-attention kernel); the rest
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,6 +66,11 @@ def check_supported(cfg: ModelConfig):
     if cfg.slot_head.retriever_impl not in ("jax", "pallas"):
         unsupported.append(
             f"retriever_impl={cfg.slot_head.retriever_impl!r}")
+    elif (cfg.slot_head.retriever_impl == "pallas"
+          and cfg.compute_dtype != "bfloat16"):
+        # the slot-attention kernel takes bf16 q, k and v only
+        unsupported.append(f"retriever_impl='pallas' with compute_dtype="
+                           f"{cfg.compute_dtype!r}")
     if unsupported:
         raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
 

@@ -198,7 +198,10 @@ def test_unported_configuration_raises():
     cfg = tiny_model_cfg(config=tconfig)
     for bad in (dataclasses.replace(cfg, compute_dtype="float16"),
                 dataclasses.replace(cfg, backbone="swin"),
-                dataclasses.replace(cfg, pos_embedding="learned")):
+                dataclasses.replace(cfg, pos_embedding="learned"),
+                # the slot-attention kernel takes bf16 only
+                dataclasses.replace(cfg, slot_head=dataclasses.replace(
+                    cfg.slot_head, retriever_impl="pallas"))):
         with pytest.raises(NotImplementedError):
             tdet.check_supported(bad)
     # the tuned stack's dtype and Retriever route are ported

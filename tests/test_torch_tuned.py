@@ -8,18 +8,27 @@ versions on CPU tensors.
 
 What is held, per frame: the kept thing classes are equal; the track ids
 of the thing segments matched by overlap correspond one to one over the
-clip; the semantic map agrees on >= 97 % of pixels and the panoptic map on
->= 30 % after matching segment ids by overlap.  Those two floors are the
-JAX package's own for its bf16 tuned stack against its exact path in this
-calibrated regime (tests/test_tuned_vs_exact.py ``ADV_MIN_SSEG``,
-``ADV_MIN_PAN_MATCHED``); its 99 % / 98 % bounds hold for its trained
-regime only, which a seeded clip cannot reach here.  The cause: the two
+clip; the semantic map agrees on >= 98.5 % of pixels and the panoptic map
+on >= 92 % after matching segment ids by overlap.  Each floor sits just
+under its reading.  Measured per frame (0, 1, 2): semantic map 99.12 %,
+98.66 %, 99.07 %; matched panoptic 97.52 %, 92.58 %, 97.74 %, the
+disagreement all on the border of a kept thing and a stuff segment.  A
+mask upsample shifted by one pixel reads 91.55 % on frame 1 and fails.
+
+Why not the 99 % / 98 % of the JAX package's trained regime: the two
 packages round bf16 at other places (torch eager after every op, XLA on
-fused chains), so the logits differ by up to ~2e-2 * max; the calibrated
-class head scales the class logits up so that ~12 slots sit just over the
-0.85 keep rule, and the random-noise frames put many pixels near a tie of
-two channels or two slots.  Measured: semantic map 98.7-99.1 %, matched
-panoptic 92.6-97.8 %, the same kept things on every frame.
+fused chains), so the decoder's outputs differ by up to ~2e-2 * max, and
+the calibrated class head multiplies the class logits by ~37 so that ~12
+slots sit at the 0.85 keep rule.  The class logits then differ by ~1.5
+(~0.1 of their spread over slots) and the masks of the random-noise frames
+have many pixels near a tie of two slots.  The semantic map depends on the
+feature path only and does not move with the decoder.
+
+The kept set is that sensitive: torch's CPU bf16 convolutions and matmuls
+sum in an order that depends on the thread count (one thread sums
+otherwise than 2, 4 or 8, which agree), and at one thread the port keeps
+one more thing on frame 0.  So the module runs the port at 4 threads: the
+result is then the same on any host.
 
 The weights are seeded and calibrated as in tests/test_torch_slice.py,
 with one change: the Retriever's q and k LayerNorm scales are quartered.
@@ -55,8 +64,19 @@ from tests.test_torch_bf16 import (_assert_module, _bf16_cfg,
 from tests.test_torch_models import doctored_params, port_model
 from tests.test_torch_slice import _clip
 
-SSEG_AGREE = 0.97
-PAN_AGREE = 0.30
+SSEG_AGREE = 0.985     # measured min 0.98657
+PAN_AGREE = 0.92       # measured min 0.92578, ids matched by overlap
+CPU_THREADS = 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _pinned_threads():
+    """The port's CPU bf16 reductions at a fixed thread count (see the
+    module docstring); the worker's own count is restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(CPU_THREADS)
+    yield
+    torch.set_num_threads(n)
 
 
 def tuned_cfg(config):
