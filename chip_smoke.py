@@ -17,6 +17,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      K = 64 and K = 100 slots of 256x512 low-res masks, with small segments
      so that repair has dirty tiles; sseg on [256, 512, 19] quarter-res
      logits with ties; slot attention at the decoder's four pixel counts.
+     The DCN backward kernel in f32 and in bf16 against the plain
+     backward at the 12 shapes of the 800x1600 training crop (B=2: the
+     reference and the current frame), each level at its halo, with
+     offsets that clamp some taps.
   4. slice    — r50_fpn_slotvps at full width and 1024x2048, the JAX
      package's tuned stack with the slot-attention kernel (bf16, bf16 DCN
      kernel, fused_sseg, fused postprocess, retriever_impl="pallas"),
@@ -38,7 +42,16 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      (dcn_impl="jax", retriever_impl="jax", postprocess impl="jax") on the
      card: no kernel launches; pixel agreement with the kernel path; and
      the bf16 path's agreement with the f32 path, printed.
-  8. report   — the card line, the kernels' JSON line, and last the result
+  8. train    — r50_fpn_slotvps at full width, the JAX package's training
+     configuration (f32, the bf16 DCN kernels forward and backward, halos
+     (2, 3, 4, 6), full-res semantic logits, the plain Retriever), seeded
+     random weights, one 800x1600 synthetic scene (batch 1, 64 GT slots):
+     5 AdamW steps through training/step.train_step with their launch
+     counts, losses, ms/step and peak memory; a step split into forward /
+     backward / optimizer and a profiler pass over one more; then, with
+     fixed_match, the loss terms and every gradient of one step with
+     dcn_impl="pallas_f32" against one with the plain DCN.
+  9. report   — the card line, the kernels' JSON line, and last the result
      line {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX.  It exits non-zero, printing no result,
@@ -100,13 +113,34 @@ PLAIN_BF16_PAN = 0.30
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 HBM_BYTES = 3.35e12
+# the training crop (cli/train.py --crop): (H, W, halo) of its FPN levels
+# P2..P5, and the batch the semantic tower sees (reference + current frame)
+TRAIN_H, TRAIN_W = 800, 1600
+TRAIN_LEVELS = ((200, 400, 2), (100, 200, 3), (50, 100, 4), (25, 50, 6))
+TRAIN_B = 2
+TRAIN_STEPS = 5
+GT_CAPACITY = 64
+# one step with the f32 DCN kernel vs one with the plain DCN, same weights
+# and batch, fixed_match: both f32, the DCN's sums in another order; each
+# gradient tensor against its own max|g|, floored at 1e-6 of the largest
+# tensor's (a few f32 ulps of it): a gradient that is 0 in exact
+# arithmetic (the q LayerNorm bias under the slot softmax) is f32 noise on
+# both sides
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_GRAD_FLOOR = 1e-6
 SRC = "slotvps_tpu_torch/csrc/"
 PV3 = "slotvps_tpu/ops/pallas/postproc_v3.py"
 DCN_TPU = "slotvps_tpu/ops/pallas/deform_conv.py:44"
+DCN_BWD_TPU = "slotvps_tpu/ops/pallas/deform_conv.py:301"
 # kernel -> (source, the TPU kernel it replaces, the path it belongs to)
 KERNELS = {
     "deform_conv2d_hopper": (SRC + "deform_conv.cu", DCN_TPU, "f32"),
     "deform_conv2d_hopper_bf16": (SRC + "deform_conv.cu", DCN_TPU, "bf16"),
+    "dcn_backward_hopper": (SRC + "deform_conv.cu", DCN_BWD_TPU,
+                            "train_f32"),
+    "dcn_backward_hopper_bf16": (SRC + "deform_conv.cu", DCN_BWD_TPU,
+                                 "train"),
     "theta_hopper": (SRC + "postproc_v3.cu", PV3 + ":151", "bf16"),
     "claim_hopper": (SRC + "postproc_v3.cu", PV3 + ":252", "bf16"),
     "argmax_hopper": (SRC + "postproc_v3.cu", PV3 + ":351", "bf16"),
@@ -138,20 +172,27 @@ def wrappers():
 
 
 def launch_counts():
-    from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
+    from slotvps_tpu_torch.ops.cuda.deform_conv import (dcn_backward_hopper,
+                                                        deform_conv2d_hopper)
 
     dcn = deform_conv2d_hopper.launches
+    bwd = dcn_backward_hopper.launches
     counts = {"deform_conv2d_hopper": dcn["float32"],
-              "deform_conv2d_hopper_bf16": dcn["bfloat16"]}
+              "deform_conv2d_hopper_bf16": dcn["bfloat16"],
+              "dcn_backward_hopper": bwd["float32"],
+              "dcn_backward_hopper_bf16": bwd["bfloat16"]}
     counts.update({name: fn.launches for name, fn in wrappers().items()})
     return counts
 
 
 def reset_counts():
-    from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
+    from slotvps_tpu_torch.ops.cuda.deform_conv import (dcn_backward_hopper,
+                                                        deform_conv2d_hopper)
 
-    for key in deform_conv2d_hopper.launches:
-        deform_conv2d_hopper.launches[key] = 0
+    for counts in (deform_conv2d_hopper.launches,
+                   dcn_backward_hopper.launches):
+        for key in counts:
+            counts[key] = 0
     for fn in wrappers().values():
         fn.launches = 0
 
@@ -217,13 +258,13 @@ def _cuda_ms(fn, n=10, warmup=2):
     return statistics.median(times)
 
 
-def dcn_case(dev, h, w, cin, cout, halo, seed):
+def dcn_case(dev, h, w, cin, cout, halo, seed, b=1):
     """Seeded DCN inputs: offsets mostly inside the halo, ~5% of them
     beyond it (clamped), and border pixels whose samples leave the image."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((1, h, w, cin), generator=g, device=dev)
-    off = torch.randn((1, h, w, 18), generator=g, device=dev) * (0.75 * halo)
-    far = torch.rand((1, h, w, 18), generator=g, device=dev) < 0.05
+    x = torch.randn((b, h, w, cin), generator=g, device=dev)
+    off = torch.randn((b, h, w, 18), generator=g, device=dev) * (0.75 * halo)
+    far = torch.rand((b, h, w, 18), generator=g, device=dev) < 0.05
     off = torch.where(far, torch.sign(off) * (halo + 1.5), off)
     wt = torch.randn((3, 3, cin, cout), generator=g, device=dev) \
         / (9 * cin) ** 0.5
@@ -275,6 +316,81 @@ def phase_kernels(dev, levels=DCN_LEVELS, blocks=DCN_BLOCKS, timed=True,
                     f"max|d| {err:.3e} > {rtol} * max|ref| {scale:.3e}")
             rows.append(row)
     return rows
+
+
+def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
+                           b=TRAIN_B, timed=True, dtype=torch.float32):
+    """DCN backward kernel vs the plain backward at every (level, block)
+    shape of the training step, computing in ``dtype`` (f32 inputs, as the
+    f32 model gives them): dx, doff and dW each within DCN_RTOL of the
+    plain version's max, dW equal from run to run."""
+    from slotvps_tpu_torch.ops.cuda.deform_conv import dcn_backward_hopper
+    from slotvps_tpu_torch.ops.deform_conv import deform_conv2d_backward
+
+    rtol = DCN_RTOL[dtype]
+    size = torch.finfo(dtype).bits // 8
+    rows = []
+    for li, (h, w, halo) in enumerate(levels):
+        for bi, (cin, cout) in enumerate(blocks):
+            x, off, wt = dcn_case(dev, h, w, cin, cout, halo,
+                                  seed=100 + 10 * li + bi, b=b)
+            g = torch.randn((b, h, w, cout), device=dev,
+                            generator=torch.Generator(dev).manual_seed(li))
+
+            def kern():
+                return dcn_backward_hopper(x, off, wt, g, halo, dtype)
+
+            def plain():
+                return deform_conv2d_backward(x, off, wt, g, halo, dtype)
+
+            out, again, ref = kern(), kern(), plain()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            errs = {n: float((a - r).abs().max())
+                    for n, a, r in zip(("dx", "doff", "dW"), out, ref)}
+            scales = {n: float(r.abs().max())
+                      for n, r in zip(("dx", "doff", "dW"), ref)}
+            ok = (all(bool(torch.isfinite(a).all()) for a in out)
+                  and all(errs[n] <= rtol * scales[n] for n in errs)
+                  and torch.equal(out[2], again[2]))
+            p = b * h * w
+            # inputs (x and W in the compute dtype, f32 offsets, g) read
+            # once, dx, doff and dW written once in f32; dsample and dW are
+            # each 2*9*Cin*Cout flops a pixel in the compute dtype; the
+            # scatter, the sample recompute and the offset sums 24 f32
+            # flops per (pixel, tap, input channel)
+            n_bytes = (size * (p * (cin + cout) + 9 * cin * cout)
+                       + 4 * (p * (cin + 36) + 9 * cin * cout))
+            row = dict(shape=f"P{li + 2} {b}x{h}x{w} {cin}->{cout} halo "
+                             f"{halo}", dtype=str(dtype),
+                       max_abs_err=max(errs.values()),
+                       rel_err=max(errs[n] / scales[n] for n in errs),
+                       errs=errs, bytes=n_bytes,
+                       ops_main=4 * 9 * cin * cout * p,
+                       ops_f32=24 * 9 * cin * p)
+            row["bound_ms"], row["bound_by"] = _bwd_bound([row], dtype)
+            if timed:
+                row["ms"] = _cuda_ms(kern)
+                row["plain_ms"] = _cuda_ms(plain, n=3, warmup=1)
+            log("kernels", json.dumps(row))
+            if not ok:
+                raise AssertionError(
+                    f"{dtype} DCN backward disagrees at {row['shape']}: "
+                    f"errors {errs} vs {rtol} x {scales}, or dW differs "
+                    "from run to run")
+            rows.append(row)
+    return rows
+
+
+def _bwd_bound(rows, dtype):
+    """Bound of the backward rows' work: the products at the compute
+    dtype's peak, the f32 elementwise work at the f32 peak."""
+    n_bytes = sum(r["bytes"] for r in rows)
+    ops = sum(r["ops_main"] for r in rows)
+    ops_f32 = sum(r["ops_f32"] for r in rows)
+    if dtype == torch.float32:
+        return bound(n_bytes, ops + ops_f32)
+    return bound(n_bytes, ops_f32, n_ops_bf16=ops)
 
 
 def postproc_case(dev, k, h, w, seed=0, n_valid=PP_VALID):
@@ -781,13 +897,7 @@ def phase_stages(model, cfg, frames, label="bf16"):
             pipe.process_frame(fr, is_first=(t == 0))
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0)
-        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.key] = (dev_us / 1e3, ev.count)
+    by_name = _device_time_by_kernel(prof)
     busy = sum(ms for ms, _ in by_name.values())
     if busy == 0:
         log("stages", f"[{label}] torch.profiler saw no device time")
@@ -905,11 +1015,243 @@ def f32_config():
         slot_head=dataclasses.replace(m.slot_head, retriever_impl="jax")))
 
 
-def report(dcn_rows, pp_rows, sseg_row, sa_row, stats, build_s):
+def train_config():
+    """The JAX package's training configuration (bench.py _trained_setup):
+    the --tuned model in f32 with the bf16 DCN route, full-res semantic
+    logits and the plain Retriever."""
+    from slotvps_tpu_torch.cli.test_eval_vpq import tune_config
+    from slotvps_tpu_torch.config import named_config
+
+    cfg = tune_config(named_config("r50_fpn_slotvps"))
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, compute_dtype="float32",
+        semantic_head=dataclasses.replace(m.semantic_head, dcn_impl="pallas",
+                                          fused_sseg=False),
+        postprocess=dataclasses.replace(m.postprocess, impl="jax")))
+
+
+def _with_dcn(cfg, impl):
+    m = cfg.model
+    return dataclasses.replace(m, semantic_head=dataclasses.replace(
+        m.semantic_head, dcn_impl=impl))
+
+
+def train_model(cfg, dev):
+    """Seeded init; fractional DCN offsets (doctor_params, fg_bn at its
+    reference scale); the Retrievers' q and k LayerNorm scales quartered,
+    so that their unscaled slot softmax does not turn f32 rounding into
+    large gradient differences between two DCN routes."""
+    from slotvps_tpu_torch.models.detector import init_model
+    from slotvps_tpu_torch.utils.calibration import doctor_params
+
+    model = init_model(torch.Generator().manual_seed(0), cfg.model,
+                       device=dev)
+    doctor_params(model, torch.Generator().manual_seed(1), fg_scale=0.1,
+                  fg_var=1.0)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if name.endswith(("inst_interact.norm_q",
+                              "inst_interact.norm_k")):
+                mod.weight.mul_(0.25)
+    return model
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _finite(tensors):
+    return bool(torch.stack([torch.isfinite(t).all()
+                             for t in tensors]).all())
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(dev):
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(dev):
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+
+
+def phase_train(dev, steps=TRAIN_STEPS, size=(TRAIN_H, TRAIN_W)):
+    """The training path: ``steps`` train_steps with dcn_impl="pallas" (the
+    main path, counts set to 0 just before and read just after), then one
+    step split into its parts and one under the profiler.  Returns
+    (stats, initial state_dict, batch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slotvps_tpu_torch.training.step import (loss_fn, make_optimizer,
+                                                 train_step)
+    from slotvps_tpu_torch.utils.synthetic import (make_scene,
+                                                   scene_train_batch)
+
+    cfg = train_config()
+    model = train_model(cfg, dev)
+    init_state = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    batch = scene_train_batch(make_scene(*size, n_things=12, seed=0),
+                              g_cap=GT_CAPACITY).to(dev)
+    opt = make_optimizer(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    log("train", f"r50_fpn_slotvps f32, dcn_impl 'pallas' (bf16), "
+                 f"{size[0]}x{size[1]}, batch 1, {GT_CAPACITY} GT slots "
+                 f"({int(batch.gt_valid.sum())} valid), {n_params} "
+                 "parameters")
+    _reset_peak(dev)
+    reset_counts()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        metrics = train_step(model, opt, batch, cfg.model)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m)
+        finite = _finite([p.grad for p in model.parameters()
+                          if p.grad is not None])
+        log("train", f"step {i}: {times[-1]:.1f} ms, grads finite "
+                     f"{finite}, " + json.dumps(m))
+        if not (finite and all(np.isfinite(v) for v in m.values())):
+            raise AssertionError(f"step {i}: non-finite loss or gradient")
+    launches = launch_counts()
+    peak = _peak_gib(dev)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(deform_conv2d_hopper_bf16=12 * steps,
+                dcn_backward_hopper_bf16=12 * steps)
+    if launches != want:
+        raise AssertionError(f"train: launches {launches} in {steps} "
+                             f"steps, want {want}")
+    for k, v in model.named_buffers():
+        if not torch.equal(v, buffers[k]):
+            raise AssertionError(f"train: BN statistics {k} changed")
+
+    # one step split into its parts, device synchronized between them
+    _sync(dev)
+    t0 = time.perf_counter()
+    opt.zero_grad()
+    total, _ = loss_fn(model, cfg.model, batch)
+    _sync(dev)
+    t1 = time.perf_counter()
+    total.backward()
+    _sync(dev)
+    t2 = time.perf_counter()
+    opt.step()
+    _sync(dev)
+    t3 = time.perf_counter()
+    split = dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                 optimizer_ms=(t3 - t2) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _sync(dev)
+        t0 = time.perf_counter()
+        train_step(model, opt, batch, cfg.model)
+        _sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = _device_time_by_kernel(prof)
+    busy = sum(ms for ms, _ in by_name.values())
+    stats = dict(path="train", launches=launches,
+                 steady_ms_per_step=statistics.median(times[1:]),
+                 first_step_ms=times[0], step_ms=times, **split,
+                 peak_mem_gib=peak,
+                 loss_total=[m["loss_total"] for m in losses],
+                 profiler_device_ms=busy, profiler_wall_ms=wall,
+                 busy_share=busy / wall if wall else 0.0)
+    log("train", json.dumps(stats))
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:14]:
+        log("train", f"  {ms:9.3f} ms {n:5d} x {name[:90]}")
+    for kern in ("dcn_fwd_bf16_kernel", "dcn_bwd_data_kernel",
+                 "dcn_bwd_weight_kernel", "dcn_bwd_reduce_kernel"):
+        hits = [(ms, n) for name, (ms, n) in by_name.items() if kern in name]
+        if hits:
+            ms, n = map(sum, zip(*hits))
+            log("train", f"  {kern}: {ms:.3f} ms in {n} launches, one step")
+    del model, opt, total
+    return stats, init_state, batch
+
+
+def phase_train_parity(dev, init_state, batch):
+    """With fixed_match, the loss terms and every gradient of one step with
+    the f32 DCN kernel (forward and backward) against one with the plain
+    DCN, from the same weights and batch.  Returns the pallas_f32 run's
+    stats (its launch counts)."""
+    from slotvps_tpu_torch.training.step import loss_fn
+
+    cfg = train_config()
+    runs = {}
+    for impl in ("pallas_f32", "jax"):
+        model = train_model(cfg, dev)
+        model.load_state_dict(init_state)
+        mcfg = _with_dcn(cfg, impl)
+        _reset_peak(dev)
+        reset_counts()
+        total, metrics = loss_fn(model, mcfg, batch, fixed_match=True)
+        total.backward()
+        _sync(dev)
+        runs[impl] = ({k: float(v.detach()) for k, v in metrics.items()},
+                      _grads(model), launch_counts(), _peak_gib(dev))
+        del model, total, metrics
+    (m_k, g_k, launches, peak_k), (m_p, g_p, plain_launches, peak_p) = (
+        runs["pallas_f32"], runs["jax"])
+    loss_rel = {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
+                for k in m_p}
+    g_max = {n: float(g.abs().max()) for n, g in g_p.items()}
+    floor = TRAIN_GRAD_FLOOR * max(g_max.values())
+    grad_rel = {n: float((g_k[n] - g_p[n]).abs().max())
+                / max(g_max[n], floor) for n in g_p}
+    worst = [(n, r, g_max[n]) for n, r in sorted(
+        grad_rel.items(), key=lambda kv: -kv[1])[:5]]
+    log("train", f"pallas_f32 vs plain DCN, fixed_match: loss terms "
+                 f"{json.dumps(m_k)}; max rel loss diff "
+                 f"{max(loss_rel.values()):.3e}; max rel grad diff "
+                 f"{worst[0][1]:.3e} over {len(grad_rel)} tensors, floor "
+                 f"{floor:.3e} (worst, with max|g|: {worst}); peak "
+                 f"{peak_k:.2f} / {peak_p:.2f} GiB")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(deform_conv2d_hopper=12, dcn_backward_hopper=12)
+    if launches != want or any(plain_launches.values()):
+        raise AssertionError(f"parity steps launched {launches} / "
+                             f"{plain_launches}, want {want} / none")
+    if set(g_k) != set(g_p) or not _finite(list(g_k.values())):
+        raise AssertionError("pallas_f32 step: gradients missing or not "
+                             "finite")
+    if max(loss_rel.values()) > TRAIN_LOSS_RTOL \
+            or worst[0][1] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"pallas_f32 step disagrees with the plain "
+                             f"step: losses {loss_rel}, gradients {worst}")
+    return dict(path="train_f32", launches=launches, peak_mem_gib=peak_k,
+                plain_peak_mem_gib=peak_p)
+
+
+def _device_time_by_kernel(prof):
+    by_name = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.key] = (dev_us / 1e3, ev.count)
+    return by_name
+
+
+def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, stats,
+           build_s):
     """The kernels line: the DCN per frame (sums over its 12 shapes) in
-    each dtype, the postprocess kernels at the given K's rows, sseg, and
-    slot attention per frame (its 14 calls).  ``launches`` comes from the
-    run of the path each kernel belongs to (KERNELS)."""
+    each dtype, its backward per training step (sums over its 12 shapes),
+    the postprocess kernels at the given K's rows, sseg, and slot attention
+    per frame (its 14 calls).  ``launches`` comes from the run of the path
+    each kernel belongs to (KERNELS)."""
     rows = []
     for name, dtype, peak in (
             ("deform_conv2d_hopper", torch.float32, F32_FLOPS),
@@ -917,6 +1259,16 @@ def report(dcn_rows, pp_rows, sseg_row, sa_row, stats, build_s):
         per_shape = dcn_rows[dtype]
         b_ms, b_by = bound(sum(r["bytes"] for r in per_shape),
                            sum(r["ops"] for r in per_shape), peak)
+        rows.append(dict(
+            name=name, max_abs_err=max(r["max_abs_err"] for r in per_shape),
+            ms=sum(r["ms"] for r in per_shape),
+            plain_ms=sum(r["plain_ms"] for r in per_shape),
+            bound_ms=b_ms, bound_by=b_by, build_s=build_s["deform_conv"]))
+    # the backward per training step: sums over its 12 shapes
+    for name, dtype in (("dcn_backward_hopper", torch.float32),
+                        ("dcn_backward_hopper_bf16", torch.bfloat16)):
+        per_shape = bwd_rows[dtype]
+        b_ms, b_by = _bwd_bound(per_shape, dtype)
         rows.append(dict(
             name=name, max_abs_err=max(r["max_abs_err"] for r in per_shape),
             ms=sum(r["ms"] for r in per_shape),
@@ -950,6 +1302,8 @@ def main():
     build_s = phase_build()
     dcn_rows = {dtype: phase_kernels(dev, dtype=dtype)
                 for dtype in (torch.float32, torch.bfloat16)}
+    bwd_rows = {dtype: phase_backward_kernels(dev, dtype=dtype)
+                for dtype in (torch.float32, torch.bfloat16)}
     pp_rows = phase_postproc_kernels(dev)
     sseg_row = phase_sseg_kernel(dev)
     sa_row = phase_slot_attention(dev)
@@ -961,13 +1315,19 @@ def main():
     phase_stages(model, cfg, frames, "bf16")
     phase_stages(model, cfg32, frames[:3], "f32")
     phase_plain(model, cfg, frames, results, results32)
+    del model
+    torch.cuda.empty_cache()
+    train_stats, init_state, batch = phase_train(dev)
+    torch.cuda.empty_cache()
+    train32_stats = phase_train_parity(dev, init_state, batch)
     # the postprocess kernels' numbers at the ladder branch the clip took
     k_path = statistics.mode(r.capacity for r in results)
     if k_path not in pp_rows:
         raise AssertionError(f"the clip took ladder branch {k_path}, not "
                              f"one of the timed shapes {list(pp_rows)}")
-    kernels = report(dcn_rows, pp_rows[k_path], sseg_row, sa_row,
-                     {"bf16": stats, "f32": stats32}, build_s)
+    kernels = report(dcn_rows, bwd_rows, pp_rows[k_path], sseg_row, sa_row,
+                     {"bf16": stats, "f32": stats32, "train": train_stats,
+                      "train_f32": train32_stats}, build_s)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 Counterpart of ``slotvps_tpu/models/detector.py``: one module tree, and the
 same two-step inference split — ``extract_features`` once per frame (its
 result is carried as the next frame's reference features) and
-``decode_pair`` for the joint two-frame slot decode.
+``decode_pair`` for the joint two-frame slot decode.  Training uses
+``apply_backbone`` and ``decode_pair_train`` (per-stage auxiliary outputs,
+the reference frame's outputs and the normalized fine feature).
 
 Ported configuration space: the ResNet backbone without stage plugins or
 R52 stem, sine position embeddings, ``compute_dtype`` "float32" or
@@ -31,6 +33,7 @@ from slotvps_tpu_torch.models.slot_head import (apply_slot_head,
                                                 retriever_attention,
                                                 retriever_attention_pallas)
 from slotvps_tpu_torch.models.track_head import init_track_head
+from slotvps_tpu_torch.ops.interpolate import upsample_int_bilinear
 
 
 class FrameFeatures(NamedTuple):
@@ -110,6 +113,12 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
     return Detector(gen, cfg).to(device).eval()
 
 
+def apply_backbone(model: Detector, cfg: ModelConfig, img: torch.Tensor):
+    """The backbone's feature levels of ``img`` [B, H, W, 3] (NHWC, not
+    cast: the training step feeds it as the batch holds it)."""
+    return model.backbone(img)
+
+
 def extract_features(model: Detector, cfg: ModelConfig,
                      img: torch.Tensor) -> FrameFeatures:
     """Backbone -> FPN -> semantic head -> conv_trans for one frame batch.
@@ -153,13 +162,61 @@ def decode_pair(model: Detector, cfg: ModelConfig,
     logits = all_logits[1][-1]      # current frame, last stage [B, L, C]
     embeds = all_embeds[1][-1]      # [B, L, D]
     fine = _feat_norm(model, all_feats[1][-1])   # [B, h, w, D]
-    b, h, w, d = fine.shape
-    masks = (embeds @ fine.reshape(b, h * w, d).transpose(1, 2)
-             ).reshape(b, -1, h, w)
     return FrameOutputs(pred_logits=logits.float(),
-                        pred_masks=_fg_bn(model, masks).float(),
+                        pred_masks=_mask_logits(model, fine, embeds).float(),
                         embeddings=embeds.float(),
                         fcn_output=cur_feats.fcn_output)
+
+
+def _mask_logits(model: Detector, feat, embeds):
+    """fg_bn(einsum("bhwc,blc->blhw", feat, embeds))."""
+    b, h, w, d = feat.shape
+    masks = (embeds @ feat.reshape(b, h * w, d).transpose(1, 2)
+             ).reshape(b, -1, h, w)
+    return _fg_bn(model, masks)
+
+
+def decode_pair_train(model: Detector, cfg: ModelConfig,
+                      ref_feats: FrameFeatures, cur_feats: FrameFeatures):
+    """Like :func:`decode_pair` but also returns per-stage auxiliary outputs
+    for deep supervision (reference return_intermediate=True; stage s uses
+    the decoder feature of level ``s // 2``, its mask logits upsampled to the
+    finest level) with the plain Retriever.
+
+    Returns (final FrameOutputs of the current frame, aux [(logits
+    [B, L, C], mask logits [B, L, h, w])] for every stage but the last,
+    extras {"ref": the reference frame's FrameOutputs, "fine_feat": the
+    normalized finest decoder feature [B, h, w, D] f32})."""
+    pos = _position_embeddings(cfg, cur_feats.feat_trans)
+    ref_pos = _position_embeddings(cfg, ref_feats.feat_trans)
+    all_logits, all_embeds, all_feats = apply_slot_head(
+        model.slot_head, cfg.slot_head,
+        features=[list(ref_feats.feat_trans), list(cur_feats.feat_trans)],
+        init_queries=model.init_mask_query,
+        pos=[ref_pos, pos])
+    normed = [_feat_norm(model, f) for f in all_feats[1]]
+    fine = normed[-1]
+    h4, w4 = fine.shape[1:3]
+    final = FrameOutputs(
+        pred_logits=all_logits[1][-1].float(),
+        pred_masks=_mask_logits(model, fine, all_embeds[1][-1]).float(),
+        embeddings=all_embeds[1][-1].float(),
+        fcn_output=cur_feats.fcn_output)
+    aux = []
+    for s in range(all_logits[1].shape[0] - 1):
+        m = _mask_logits(model, normed[min(s // 2, len(normed) - 1)],
+                         all_embeds[1][s])
+        if m.shape[-2:] != (h4, w4):
+            m = upsample_int_bilinear(m.permute(0, 2, 3, 1),
+                                      h4 // m.shape[-2]).permute(0, 3, 1, 2)
+        aux.append((all_logits[1][s].float(), m.float()))
+    ref_fine = _feat_norm(model, all_feats[0][-1])
+    ref_final = FrameOutputs(
+        pred_logits=all_logits[0][-1].float(),
+        pred_masks=_mask_logits(model, ref_fine, all_embeds[0][-1]).float(),
+        embeddings=all_embeds[0][-1].float(),
+        fcn_output=ref_feats.fcn_output)
+    return final, aux, {"ref": ref_final, "fine_feat": fine.float()}
 
 
 def _feat_norm(model: Detector, feat):

@@ -17,11 +17,16 @@ strings, with these meanings:
   (``ops/cuda/deform_conv.py``), halo ``dcn_halo or 4``;
 * ``"pallas"``     — the same kernel in bf16, halo ``dcn_halo or 4``.
 
-On the two kernel routes the input, the offsets and the weight go to the
-kernel in the route's dtype (f32 for "pallas_f32", bf16 for "pallas"); in
-the bf16 model the offsets come out of the offset conv in bf16 and are
-widened to f32 only for sampling, as in the JAX package.  On CPU tensors
-the wrapper runs the plain version at that dtype.
+On the two kernel routes the input and the weight go to the kernel in the
+route's compute dtype (f32 for "pallas_f32", bf16 for "pallas"), the
+offsets in f32 (the bf16 model's bf16 offsets widen exactly), and the
+output comes back in the activations' dtype without another rounding, as
+``deform_conv2d_pallas`` does: in an f32 model "pallas" computes in bf16
+and returns f32.  Both routes are differentiable (the backward kernel).
+On CPU tensors the wrapper runs the plain versions at that dtype.
+
+:func:`semantic_loss` is the head's training loss (weighted CE with an
+ignore label).
 """
 
 from __future__ import annotations
@@ -53,9 +58,9 @@ class DCNBlock(nn.Module):
         weight = self.conv.weight.permute(2, 3, 1, 0)  # -> [3, 3, Cin, Cout]
         if impl in ("pallas", "pallas_f32"):
             dtype = torch.bfloat16 if impl == "pallas" else torch.float32
-            out = deform_conv2d_hopper(
-                x.to(dtype).contiguous(), offset.to(dtype).contiguous(),
-                weight.to(dtype).contiguous(), halo or 4).to(x.dtype)
+            out = deform_conv2d_hopper(x.contiguous(), offset.contiguous(),
+                                       weight, halo or 4,
+                                       compute_dtype=dtype)
         elif impl == "jax":
             out = deform_conv2d(x, offset, weight, padding=1,
                                 max_displacement=halo or 8)
@@ -108,3 +113,16 @@ class SemanticHead(nn.Module):
 
 def init_semantic_head(gen, cfg: SemanticHeadConfig) -> SemanticHead:
     return SemanticHead(gen, cfg)
+
+
+def semantic_loss(fcn_score: torch.Tensor, seg_label: torch.Tensor,
+                  cfg: SemanticHeadConfig) -> torch.Tensor:
+    """Weighted CE with ignore label (reference upsnetFPN.py:87-98).
+
+    fcn_score [B, h, w, C] logits, seg_label [B, h, w] int."""
+    valid = seg_label != cfg.ignore_label
+    labels = torch.where(valid, seg_label, 0).long()
+    logp = torch.log_softmax(fcn_score.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    loss = -(ll * valid).sum() / valid.sum().clamp_min(1)
+    return cfg.loss_weight * loss

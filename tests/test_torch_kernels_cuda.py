@@ -1,6 +1,8 @@
 """The Hopper kernels against their plain PyTorch versions, on the card:
-the DCN kernel in f32 and bf16, the five fused-postprocess kernels (theta,
-claim, argmax, repair, sseg) and the slot-attention kernel.
+the DCN kernel in f32 and bf16 (forward, the bf16 forward's f32 output,
+the backward and its autograd Function), the five fused-postprocess
+kernels (theta, claim, argmax, repair, sseg) and the slot-attention
+kernel.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the tests' conftest helpers, so it also runs on a
@@ -11,19 +13,23 @@ machine without JAX:
 Tolerances: DCN max |kernel - plain| <= 1e-4 * max |plain| in f32 (sums
 taken in another order) and <= 1e-2 * max |plain| in bf16 (the same three
 bf16 rounding points; a sum in another order moves a rounded value by one
-bf16 ulp now and then); slot attention <= 1e-4 * max |plain| (f32 sums in
-another order); theta within 1e-5 * max(1, |theta|) (the sum of exp in
-another order); the integer outputs of claim, argmax, repair and sseg are
-bit-identical, given identical inputs."""
+bf16 ulp now and then), for each of the backward's dx, doff and dW too (dx
+is summed with f32 atomics, in an order that varies from run to run; dW is
+summed in a fixed order and must be equal from run to run); slot attention
+<= 1e-4 * max |plain| (f32 sums in another order); theta within 1e-5 *
+max(1, |theta|) (the sum of exp in another order); the integer outputs of
+claim, argmax, repair and sseg are bit-identical, given identical inputs."""
 
 import pytest
 import torch
 
 from slotvps_tpu_torch.ops import postproc_v3 as plain
 from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
-from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
+from slotvps_tpu_torch.ops.cuda.deform_conv import (dcn_backward_hopper,
+                                                    deform_conv2d_hopper)
 from slotvps_tpu_torch.ops.cuda.slot_attention import slot_attention_hopper
-from slotvps_tpu_torch.ops.deform_conv import deform_conv2d
+from slotvps_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                               deform_conv2d_backward)
 from slotvps_tpu_torch.ops.slot_attention import slot_attention
 from slotvps_tpu_torch.utils.precision import setup_precision
 
@@ -90,6 +96,78 @@ def test_bf16_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+def test_bf16_kernel_f32_output(cuda_device):
+    """An f32 model's bf16 route: f32 x and offsets, bf16 compute, the
+    output in f32 without a final rounding (the plain version called the
+    same way)."""
+    x, off, wt = _case(cuda_device, 2, 25, 50, 128, 128, 6)
+    before = dict(deform_conv2d_hopper.launches)
+    with torch.no_grad():
+        out = deform_conv2d_hopper(x, off, wt, 6,
+                                   compute_dtype=torch.bfloat16)
+        ref = deform_conv2d(x, off, wt, padding=1, max_displacement=6,
+                            compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert deform_conv2d_hopper.launches == dict(
+        before, bfloat16=before["bfloat16"] + 1)
+    assert float((out - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 25, 50, 128, 128, 6),    # P5 of the 800x1600 training crop, B=2
+    (1, 13, 70, 256, 256, 2),    # ragged width, 256 -> 256
+    (1, 9, 40, 20, 24, 3),       # Cin, Cout not multiples of the tiles
+    (1, 5, 7, 8, 4, 0),          # halo 0: integer-only sampling
+])
+def test_backward_kernel_matches_plain(cuda_device, dtype, shape):
+    b, h, w, c, co, halo = shape
+    x, off, wt = _case(cuda_device, b, h, w, c, co, halo or 1)
+    g = torch.randn((b, h, w, co), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    before = dict(dcn_backward_hopper.launches)
+    out = dcn_backward_hopper(x, off, wt, g, halo, dtype)
+    again = dcn_backward_hopper(x, off, wt, g, halo, dtype)
+    ref = deform_conv2d_backward(x, off, wt, g, halo, dtype)
+    torch.cuda.synchronize()
+    key = "float32" if dtype == torch.float32 else "bfloat16"
+    assert dcn_backward_hopper.launches == dict(before,
+                                                **{key: before[key] + 2})
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, a, r in zip(("dx", "doff", "dW"), out, ref):
+        assert a.dtype == torch.float32 and a.shape == r.shape, name
+        err = float((a - r).abs().max())
+        assert err <= rtol * float(r.abs().max()), (name, err)
+    assert torch.equal(out[2], again[2])     # dW: a fixed order of sums
+    assert torch.equal(out[1], again[1])
+
+
+@pytest.mark.cuda
+def test_autograd_function_runs_the_backward_kernel(cuda_device):
+    """deform_conv2d_hopper with gradients on the card: one forward and
+    one backward launch, gradients as the backward wrapper gives them, in
+    the inputs' dtypes (the f32 model's bf16 route)."""
+    x, off, wt = _case(cuda_device, 1, 16, 40, 32, 32, 3)
+    x, off, wt = (t.requires_grad_() for t in (x, off, wt))
+    fwd, bwd = (dict(deform_conv2d_hopper.launches),
+                dict(dcn_backward_hopper.launches))
+    out = deform_conv2d_hopper(x, off, wt, 3, compute_dtype=torch.bfloat16)
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert deform_conv2d_hopper.launches == dict(
+        fwd, bfloat16=fwd["bfloat16"] + 1)
+    assert dcn_backward_hopper.launches == dict(
+        bwd, bfloat16=bwd["bfloat16"] + 1)
+    dx, doff, dw = dcn_backward_hopper(x.detach(), off.detach(),
+                                       wt.detach(), g, 3, torch.bfloat16)
+    assert torch.equal(off.grad, doff) and torch.equal(wt.grad, dw)
+    assert float((x.grad - dx).abs().max()) <= 1e-5 * float(dx.abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 100, 2048), (1, 100, 8192),
                                    (2, 20, 1000), (1, 128, 33), (1, 1, 64)])
 def test_slot_attention_kernel_matches_plain(cuda_device, shape):
@@ -136,10 +214,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                                  wt, 2)
         with pytest.raises(TypeError, match="bfloat16"):
             deform_conv2d_hopper(x.half(), off, wt, 2)
-        with pytest.raises(TypeError, match="one dtype"):
-            deform_conv2d_hopper(x.bfloat16(), off, wt, 2)
+        with pytest.raises(TypeError, match="compute_dtype"):
+            deform_conv2d_hopper(x, off, wt, 2, compute_dtype=torch.half)
         with pytest.raises(ValueError, match="one CUDA device"):
             deform_conv2d_hopper(x, off.cpu(), wt, 2)
+        with pytest.raises(ValueError, match="g "):
+            dcn_backward_hopper(x, off, wt, x, 2)
         with pytest.raises(ValueError, match="multiple of 4"):
             deform_conv2d_hopper(x, off, wt[..., :6].contiguous(), 2)
 

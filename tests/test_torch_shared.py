@@ -158,3 +158,135 @@ def test_init_model_runs_on_the_card_unless_asked():
     model = tdet.init_model(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+
+
+# ---- the trainer's data path: transforms, mask, sampler, synthetic ----
+
+def _frame_gt_pair(h=64, w=128):
+    """The same synthetic frame and GT as each package's FrameGT."""
+    from slotvps_tpu.data.transforms import FrameGT as JFrameGT
+    from slotvps_tpu_torch.data.transforms import FrameGT
+
+    from test_training import _synthetic_frame
+
+    img, gt = _synthetic_frame(h, w)
+    fields = {f.name: getattr(gt, f.name)
+              for f in dataclasses.fields(JFrameGT)}
+    return img, gt, FrameGT(**fields)
+
+
+def _assert_same(a, b, path="out"):
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            _assert_same(a[k], b[k], f"{path}.{k}")
+    elif dataclasses.is_dataclass(a):
+        _assert_same(dataclasses.asdict(a), dataclasses.asdict(b), path)
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{path}[{i}]")
+    elif a is None or np.isscalar(a):
+        assert a == b, path
+    else:
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=path)
+
+
+@pytest.mark.parametrize("pseudo_video", [True, False])
+def test_train_pipeline_copy_matches(pseudo_video):
+    """apply_train_pipeline with the same seeded rng: every output equal,
+    for the pseudo-video shift and for a real reference frame."""
+    from slotvps_tpu.data import transforms as jt
+    from slotvps_tpu_torch.data import transforms as tt
+
+    img, jgt, tgt = _frame_gt_pair()
+    kw = dict(img_scale=(128, 64), ratio_range=(0.8, 1.2),
+              crop_size=(48, 96), shift_padding=10)
+    n = 0
+    for seed in range(4):
+        ref = (None, None) if pseudo_video else (img[:, ::-1].copy(), None)
+        out_j = jt.apply_train_pipeline(
+            img, jgt, ref[0], None if pseudo_video else jgt,
+            jt.TrainAugConfig(**kw), np.random.default_rng(seed),
+            pseudo_video=pseudo_video)
+        out_t = tt.apply_train_pipeline(
+            img, tgt, ref[0], None if pseudo_video else tgt,
+            tt.TrainAugConfig(**kw), np.random.default_rng(seed),
+            pseudo_video=pseudo_video)
+        assert (out_j is None) == (out_t is None)
+        if out_j is not None:
+            n += 1
+            _assert_same(out_t, out_j)
+    assert n > 0
+
+
+def test_augment_copies_match():
+    """The augmentations outside the released pipeline (expand, the
+    min-IoU crop with its bbox_overlaps, photometric distortion)."""
+    from slotvps_tpu.data import transforms as jt
+    from slotvps_tpu.eval.detection import bbox_overlaps
+    from slotvps_tpu_torch.data import transforms as tt
+
+    img, jgt, tgt = _frame_gt_pair()
+    for fn in ("expand", "min_iou_random_crop"):
+        for seed in range(3):
+            a = getattr(tt, fn)(img, tgt, np.random.default_rng(seed))
+            b = getattr(jt, fn)(img, jgt, np.random.default_rng(seed))
+            _assert_same(a, b, fn)
+    _assert_same(tt.photometric_distortion(img, np.random.default_rng(1)),
+                 jt.photometric_distortion(img, np.random.default_rng(1)))
+    boxes = np.random.default_rng(0).uniform(0, 50, (5, 4))
+    boxes[:, 2:] += boxes[:, :2]
+    for mode in ("iou", "iof"):
+        np.testing.assert_array_equal(
+            tt.bbox_overlaps(boxes, boxes[::-1], mode),
+            bbox_overlaps(boxes, boxes[::-1], mode))
+
+
+def test_mask_copy_matches():
+    from slotvps_tpu.data import mask as jm
+    from slotvps_tpu_torch.data import mask as tm
+
+    rng = np.random.default_rng(0)
+    m = (rng.random((20, 30)) < 0.3).astype(np.uint8)
+    rle_t, rle_j = tm.encode_rle(m), jm.encode_rle(m)
+    assert rle_t == rle_j
+    np.testing.assert_array_equal(tm.decode_mask(rle_t, 20, 30),
+                                  jm.decode_mask(rle_j, 20, 30))
+    np.testing.assert_array_equal(tm.decode_mask(rle_t, 20, 30), m)
+    poly = [[2.0, 3.0, 25.0, 4.0, 20.0, 17.0, 4.0, 15.0]]
+    np.testing.assert_array_equal(tm.decode_mask(poly, 20, 30),
+                                  jm.decode_mask(poly, 20, 30))
+
+
+def test_sampler_copy_matches():
+    from slotvps_tpu.data import sampler as js
+    from slotvps_tpu_torch.data import sampler as ts
+
+    infos = [{"height": 64, "width": 128 if i % 3 else 32}
+             for i in range(11)]
+    flags = ts.aspect_ratio_flags(infos)
+    np.testing.assert_array_equal(flags, js.aspect_ratio_flags(infos))
+    for spb in (1, 2, 3):
+        np.testing.assert_array_equal(
+            ts.group_shuffled_indices(flags, spb, np.random.default_rng(5)),
+            js.group_shuffled_indices(flags, spb, np.random.default_rng(5)))
+    for rank in (0, 1):
+        np.testing.assert_array_equal(
+            ts.distributed_group_indices(flags, 2, 2, rank,
+                                         np.random.default_rng(7)),
+            js.distributed_group_indices(flags, 2, 2, rank,
+                                         np.random.default_rng(7)))
+
+
+def test_synthetic_scene_copy_matches():
+    from slotvps_tpu.utils import synthetic as js
+    from slotvps_tpu_torch.utils import synthetic as ts
+
+    for h, w, n in ((48, 96, 5), (40, 40, 12)):
+        a, b = ts.make_scene(h, w, n_things=n, seed=3), js.make_scene(
+            h, w, n_things=n, seed=3)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(ts.norm_img(a.img), js.norm_img(b.img))
