@@ -17,10 +17,11 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      K = 64 and K = 100 slots of 256x512 low-res masks, with small segments
      so that repair has dirty tiles; sseg on [256, 512, 19] quarter-res
      logits with ties; slot attention at the decoder's four pixel counts.
-     The DCN backward kernel in f32 and in bf16 against the plain
-     backward at the 12 shapes of the 800x1600 training crop (B=2: the
-     reference and the current frame), each level at its halo, with
-     offsets that clamp some taps.
+     At the 12 shapes of the 800x1600 training crop (B=2: the reference
+     and the current frame), each level at its halo, with offsets that
+     clamp some taps: the DCN forward kernel on the f32 model's bf16 route
+     (f32 x and offsets, bf16 compute, f32 output), and the DCN backward
+     kernel in f32 and in bf16 against the plain backward.
   4. slice    — r50_fpn_slotvps at full width and 1024x2048, the JAX
      package's tuned stack with the slot-attention kernel (bf16, bf16 DCN
      kernel, fused_sseg, fused postprocess, retriever_impl="pallas"),
@@ -82,6 +83,13 @@ DCN_BLOCKS = ((256, 256), (256, 128), (128, 128))
 # In bf16 both round at the same three points, and a sum in another order
 # moves a rounded value by one bf16 ulp (2**-8 relative) now and then.
 DCN_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# an f32 model's bf16 route (f32 x and offsets, bf16 compute, f32 output)
+# against its plain version: the same rounding points and no rounding of the
+# output, so what differs is the order of f32 sums, and now and then a
+# sample whose f32 sum lies within an ulp of a bf16 rounding boundary
+# (one bf16 ulp, 2**-8 of one of the 9*Cin terms of an output, ~3e-5 of
+# max|ref| at Cin=128)
+DCN_F32_OUT_RTOL = 1e-3
 # slot attention (f32 out): f32 sums over 256 channels and over the pixels
 # in another order
 SA_RTOL = 1e-4
@@ -137,6 +145,8 @@ DCN_BWD_TPU = "slotvps_tpu/ops/pallas/deform_conv.py:301"
 KERNELS = {
     "deform_conv2d_hopper": (SRC + "deform_conv.cu", DCN_TPU, "f32"),
     "deform_conv2d_hopper_bf16": (SRC + "deform_conv.cu", DCN_TPU, "bf16"),
+    "deform_conv2d_hopper_bf16_f32": (SRC + "deform_conv.cu", DCN_TPU,
+                                      "train"),
     "dcn_backward_hopper": (SRC + "deform_conv.cu", DCN_BWD_TPU,
                             "train_f32"),
     "dcn_backward_hopper_bf16": (SRC + "deform_conv.cu", DCN_BWD_TPU,
@@ -179,6 +189,7 @@ def launch_counts():
     bwd = dcn_backward_hopper.launches
     counts = {"deform_conv2d_hopper": dcn["float32"],
               "deform_conv2d_hopper_bf16": dcn["bfloat16"],
+              "deform_conv2d_hopper_bf16_f32": dcn["bfloat16_f32"],
               "dcn_backward_hopper": bwd["float32"],
               "dcn_backward_hopper_bf16": bwd["bfloat16"]}
     counts.update({name: fn.launches for name, fn in wrappers().items()})
@@ -197,13 +208,24 @@ def reset_counts():
         fn.launches = 0
 
 
+def bound_parts(n_bytes, n_ops, peak_ops=F32_FLOPS, n_ops_bf16=0):
+    """The three least times in ms on the published peaks: the bytes at the
+    memory rate, ``n_ops`` at ``peak_ops`` and ``n_ops_bf16`` (bf16
+    products, f32 sums) at the tensor cores' rate."""
+    return dict(bytes=n_bytes / HBM_BYTES * 1e3,
+                ops=n_ops / peak_ops * 1e3,
+                ops_bf16=n_ops_bf16 / BF16_FLOPS * 1e3)
+
+
 def bound(n_bytes, n_ops, peak_ops=F32_FLOPS, n_ops_bf16=0):
-    """(bound ms, what bounds it) on the published peaks: ``n_ops`` at
-    ``peak_ops`` plus ``n_ops_bf16`` (bf16 products, f32 sums) at the
-    tensor cores' rate, as times."""
-    t_bytes = n_bytes / HBM_BYTES * 1e3
-    t_ops = (n_ops / peak_ops + n_ops_bf16 / BF16_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound ms, what bounds it): the largest of :func:`bound_parts`.  The
+    memory, the tensor cores and the other pipes work at the same time, so
+    the least time of work of mixed kinds is the longest of the three, not
+    their sum."""
+    parts = bound_parts(n_bytes, n_ops, peak_ops, n_ops_bf16)
+    t_ops = max(parts["ops"], parts["ops_bf16"])
+    return ((parts["bytes"], "bytes") if parts["bytes"] >= t_ops
+            else (t_ops, "operations"))
 
 
 def phase_device():
@@ -272,48 +294,58 @@ def dcn_case(dev, h, w, cin, cout, halo, seed, b=1):
 
 
 def phase_kernels(dev, levels=DCN_LEVELS, blocks=DCN_BLOCKS, timed=True,
-                  dtype=torch.float32):
-    """DCN kernel vs plain at every (level, block) shape, in ``dtype``
-    (inputs rounded to it; the plain version at compute_dtype=dtype)."""
+                  dtype=torch.float32, b=1, io_dtype=None):
+    """DCN kernel vs plain at every (level, block) shape and batch ``b``,
+    computing in ``dtype`` with inputs and output in ``io_dtype`` (default
+    ``dtype``; float32 with a bf16 ``dtype`` is an f32 model's bf16 route);
+    the plain version at compute_dtype=dtype on the same inputs."""
     from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
     from slotvps_tpu_torch.ops.deform_conv import deform_conv2d
 
-    rtol = DCN_RTOL[dtype]
-    size = torch.finfo(dtype).bits // 8
+    io_dtype = io_dtype or dtype
+    rtol = DCN_RTOL[dtype] if io_dtype == dtype else DCN_F32_OUT_RTOL
+    size = torch.finfo(io_dtype).bits // 8
     rows = []
     for li, (h, w, halo) in enumerate(levels):
         for bi, (cin, cout) in enumerate(blocks):
-            x, off, wt = (t.to(dtype) for t in dcn_case(
-                dev, h, w, cin, cout, halo, seed=10 * li + bi))
+            x, off, wt = (t.to(io_dtype) for t in dcn_case(
+                dev, h, w, cin, cout, halo, seed=10 * li + bi, b=b))
 
             def plain():
                 return deform_conv2d(x, off, wt, padding=1,
                                      max_displacement=halo,
                                      compute_dtype=dtype)
 
+            def kern():
+                return deform_conv2d_hopper(x, off, wt, halo,
+                                            compute_dtype=dtype)
+
             with torch.no_grad():
                 ref = plain()
-                out = deform_conv2d_hopper(x, off, wt, halo)
+                out = kern()
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
             scale = float(ref.float().abs().max())
-            ok = bool(torch.isfinite(out).all()) and err <= rtol * scale
+            ok = (bool(torch.isfinite(out).all()) and out.dtype == io_dtype
+                  and err <= rtol * scale)
             # each input read once, the output written once; one FMA = 2
-            n_bytes = size * (h * w * (cin + 18 + cout) + 9 * cin * cout)
-            row = dict(shape=f"P{li + 2} {h}x{w} {cin}->{cout} halo {halo}",
-                       dtype=str(dtype), max_abs_err=err, max_abs_ref=scale,
-                       bytes=n_bytes, ops=2 * 9 * cin * cout * h * w)
+            n_bytes = size * (b * h * w * (cin + 18 + cout) + 9 * cin * cout)
+            row = dict(shape=f"P{li + 2} {b}x{h}x{w} {cin}->{cout} halo "
+                             f"{halo}", dtype=str(dtype),
+                       io_dtype=str(io_dtype), max_abs_err=err,
+                       max_abs_ref=scale, rel_err=err / scale, bytes=n_bytes,
+                       ops=2 * 9 * cin * cout * b * h * w)
             if timed:
                 with torch.no_grad():
-                    row["ms"] = _cuda_ms(
-                        lambda: deform_conv2d_hopper(x, off, wt, halo))
+                    row["ms"] = _cuda_ms(kern)
                     row["plain_ms"] = _cuda_ms(plain)
             log("kernels", json.dumps(row))
             if not ok:
                 raise AssertionError(
-                    f"{dtype} DCN kernel disagrees at {row['shape']}: "
-                    f"max|d| {err:.3e} > {rtol} * max|ref| {scale:.3e}")
+                    f"{dtype} DCN kernel ({io_dtype} in and out) disagrees "
+                    f"at {row['shape']}: max|d| {err:.3e} > {rtol} * "
+                    f"max|ref| {scale:.3e}, or output dtype {out.dtype}")
             rows.append(row)
     return rows
 
@@ -369,6 +401,7 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
                        ops_main=4 * 9 * cin * cout * p,
                        ops_f32=24 * 9 * cin * p)
             row["bound_ms"], row["bound_by"] = _bwd_bound([row], dtype)
+            row["bound_parts_ms"] = _bwd_bound([row], dtype, parts=True)
             if timed:
                 row["ms"] = _cuda_ms(kern)
                 row["plain_ms"] = _cuda_ms(plain, n=3, warmup=1)
@@ -382,15 +415,17 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
     return rows
 
 
-def _bwd_bound(rows, dtype):
+def _bwd_bound(rows, dtype, parts=False):
     """Bound of the backward rows' work: the products at the compute
-    dtype's peak, the f32 elementwise work at the f32 peak."""
+    dtype's peak, the f32 elementwise work at the f32 peak (in bf16 the two
+    run on different pipes at the same time: the longer one bounds).  With
+    ``parts``, the three times (bytes, f32 work, tensor-core work)."""
     n_bytes = sum(r["bytes"] for r in rows)
     ops = sum(r["ops_main"] for r in rows)
     ops_f32 = sum(r["ops_f32"] for r in rows)
-    if dtype == torch.float32:
-        return bound(n_bytes, ops + ops_f32)
-    return bound(n_bytes, ops_f32, n_ops_bf16=ops)
+    args = ((n_bytes, ops + ops_f32) if dtype == torch.float32
+            else (n_bytes, ops_f32, F32_FLOPS, ops))
+    return bound_parts(*args) if parts else bound(*args)
 
 
 def postproc_case(dev, k, h, w, seed=0, n_valid=PP_VALID):
@@ -624,6 +659,8 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
         total["ops"] += calls * n_ops
         total["ops_bf16"] += calls * n_ops_bf16
     total["bound_ms"], total["bound_by"] = bound(
+        total["bytes"], total["ops"], n_ops_bf16=total["ops_bf16"])
+    total["bound_parts_ms"] = bound_parts(
         total["bytes"], total["ops"], n_ops_bf16=total["ops_bf16"])
     return total
 
@@ -1127,7 +1164,7 @@ def phase_train(dev, steps=TRAIN_STEPS, size=(TRAIN_H, TRAIN_W)):
     launches = launch_counts()
     peak = _peak_gib(dev)
     want = dict.fromkeys(KERNELS, 0)
-    want.update(deform_conv2d_hopper_bf16=12 * steps,
+    want.update(deform_conv2d_hopper_bf16_f32=12 * steps,
                 dcn_backward_hopper_bf16=12 * steps)
     if launches != want:
         raise AssertionError(f"train: launches {launches} in {steps} "
@@ -1248,15 +1285,15 @@ def _device_time_by_kernel(prof):
 def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, stats,
            build_s):
     """The kernels line: the DCN per frame (sums over its 12 shapes) in
-    each dtype, its backward per training step (sums over its 12 shapes),
-    the postprocess kernels at the given K's rows, sseg, and slot attention
-    per frame (its 14 calls).  ``launches`` comes from the run of the path
+    each dtype, its f32-model bf16 route and its backward per training step
+    (sums over the step's 12 shapes), the postprocess kernels at the given
+    K's rows, sseg, and slot attention per frame (its 14 calls).  ``launches`` comes from the run of the path
     each kernel belongs to (KERNELS)."""
     rows = []
-    for name, dtype, peak in (
-            ("deform_conv2d_hopper", torch.float32, F32_FLOPS),
-            ("deform_conv2d_hopper_bf16", torch.bfloat16, BF16_FLOPS)):
-        per_shape = dcn_rows[dtype]
+    for name, peak in (("deform_conv2d_hopper", F32_FLOPS),
+                       ("deform_conv2d_hopper_bf16", BF16_FLOPS),
+                       ("deform_conv2d_hopper_bf16_f32", BF16_FLOPS)):
+        per_shape = dcn_rows[name]
         b_ms, b_by = bound(sum(r["bytes"] for r in per_shape),
                            sum(r["ops"] for r in per_shape), peak)
         rows.append(dict(
@@ -1273,7 +1310,9 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, stats,
             name=name, max_abs_err=max(r["max_abs_err"] for r in per_shape),
             ms=sum(r["ms"] for r in per_shape),
             plain_ms=sum(r["plain_ms"] for r in per_shape),
-            bound_ms=b_ms, bound_by=b_by, build_s=build_s["deform_conv"]))
+            bound_ms=b_ms, bound_by=b_by,
+            bound_parts_ms=_bwd_bound(per_shape, dtype, parts=True),
+            build_s=build_s["deform_conv"]))
     for name, row in list(pp_rows.items()) + [("sseg_hopper", sseg_row)]:
         rows.append(dict(
             name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],
@@ -1283,6 +1322,7 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, stats,
         name="slot_attention_hopper", max_abs_err=sa_row["max_abs_err"],
         ms=sa_row["ms"], plain_ms=sa_row["plain_ms"],
         bound_ms=sa_row["bound_ms"], bound_by=sa_row["bound_by"],
+        bound_parts_ms=sa_row["bound_parts_ms"],
         build_s=build_s["slot_attention"]))
     for kern in rows:
         source, replaces, path = KERNELS[kern["name"]]
@@ -1300,8 +1340,13 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, stats,
 def main():
     dev, card = phase_device()
     build_s = phase_build()
-    dcn_rows = {dtype: phase_kernels(dev, dtype=dtype)
-                for dtype in (torch.float32, torch.bfloat16)}
+    dcn_rows = {
+        "deform_conv2d_hopper": phase_kernels(dev, dtype=torch.float32),
+        "deform_conv2d_hopper_bf16": phase_kernels(dev, dtype=torch.bfloat16),
+        # the training step's forward: f32 activations, bf16 compute
+        "deform_conv2d_hopper_bf16_f32": phase_kernels(
+            dev, levels=TRAIN_LEVELS, b=TRAIN_B, dtype=torch.bfloat16,
+            io_dtype=torch.float32)}
     bwd_rows = {dtype: phase_backward_kernels(dev, dtype=dtype)
                 for dtype in (torch.float32, torch.bfloat16)}
     pp_rows = phase_postproc_kernels(dev)

@@ -38,7 +38,8 @@
 // Forward design (simple first).  Both kernels: a block owns a strip of BP
 // output pixels of one row and a tile of BN output channels.  It computes
 // each (tap, pixel) pair's four corner indices and weights once into shared
-// memory (make_tap, shared by both), then walks Cin in chunks of CK: its
+// memory (make_tap; its geometry, tap_geom and tap_corners, is the
+// backward's too), then walks Cin in chunks of CK: its
 // threads gather the clamped bilinear samples into a shared-memory im2col
 // tile of 9*CK contracted rows (NHWC, so a corner's channels are
 // contiguous and loads coalesce), load the matching weight tile and
@@ -118,50 +119,75 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-// The sampling descriptor of tap k at output pixel (y, xo) of the image
-// whose first pixel is `img`; with kRound, each corner weight rounded to
-// bf16 (the bf16 kernel's first rounding point).
+// Where tap k of output pixel (y, xo) samples, from that pixel's 18
+// offsets `off`: the one statement of the sampling geometry, shared by the
+// forward's and the backward's descriptors.
+struct TapGeom {
+  bool valid;      // the unclamped position lies in (-1, H) x (-1, W)
+  bool ncy, ncx;   // within +-halo of the rigid position in y / x: the
+                   // clamp passes the derivative (closed interval)
+  int y0, x0;      // top-left corner of the clamped position
+  float fy, fx;    // its fractions
+};
+
+__device__ __forceinline__ TapGeom tap_geom(const float* __restrict__ off,
+                                            int y, int xo, int k, int H,
+                                            int W, int halo) {
+  TapGeom t;
+  const float rig_y = (float)(y - 1 + k / 3);
+  const float rig_x = (float)(xo - 1 + k % 3);
+  const float py = rig_y + off[2 * k];
+  const float px = rig_x + off[2 * k + 1];
+  t.valid = py > -1.f && py < (float)H && px > -1.f && px < (float)W;
+  t.ncy = py >= rig_y - (float)halo && py <= rig_y + (float)halo;
+  t.ncx = px >= rig_x - (float)halo && px <= rig_x + (float)halo;
+  const float cy = fminf(fmaxf(py, rig_y - (float)halo), rig_y + (float)halo);
+  const float cx = fminf(fmaxf(px, rig_x - (float)halo), rig_x + (float)halo);
+  const float y0f = floorf(cy);
+  const float x0f = floorf(cx);
+  t.fy = cy - y0f;
+  t.fx = cx - x0f;
+  t.y0 = (int)y0f;
+  t.x0 = (int)x0f;
+  return t;
+}
+
+// The corners of a tap: corner j (row j >> 1, column j & 1) gets pixel
+// index base + cy*W + cx and its bilinear weight, or -1 and 0 where it lies
+// outside the image or the tap is invalid; with kRound each weight rounded
+// to bf16 (the bf16 kernels' first rounding point).
 template <bool kRound>
-__device__ Tap make_tap(const float* __restrict__ offset, size_t img, int y,
-                        int xo, int k, int H, int W, int halo) {
-  Tap t;
+__device__ __forceinline__ void tap_corners(const TapGeom& gm, int base,
+                                            int H, int W, int* idx,
+                                            float* w) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    t.idx[j] = -1;
-    t.w[j] = 0.f;
-  }
-  if (xo < W) {
-    const float* off = offset + ((img + (size_t)y * W + xo) * 18);
-    const float dy = off[2 * k];
-    const float dx = off[2 * k + 1];
-    const float rig_y = (float)(y - 1 + k / 3);
-    const float rig_x = (float)(xo - 1 + k % 3);
-    float py = rig_y + dy;
-    float px = rig_x + dx;
-    // validity at the unclamped position
-    if (py > -1.f && py < (float)H && px > -1.f && px < (float)W) {
-      py = fminf(fmaxf(py, rig_y - (float)halo), rig_y + (float)halo);
-      px = fminf(fmaxf(px, rig_x - (float)halo), rig_x + (float)halo);
-      const float y0f = floorf(py);
-      const float x0f = floorf(px);
-      const float fy = py - y0f;
-      const float fx = px - x0f;
-      const int y0 = (int)y0f;
-      const int x0 = (int)x0f;
-      const float cw[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx,
-                           fy * (1.f - fx), fy * fx};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cy = y0 + (j >> 1);
-        const int cx = x0 + (j & 1);
-        if (cy >= 0 && cy < H && cx >= 0 && cx < W) {
-          t.idx[j] = cy * W + cx;
-          t.w[j] = kRound ? __bfloat162float(__float2bfloat16_rn(cw[j]))
-                          : cw[j];
-        }
-      }
+    const int cy = gm.y0 + (j >> 1);
+    const int cx = gm.x0 + (j & 1);
+    idx[j] = -1;
+    w[j] = 0.f;
+    if (gm.valid && cy >= 0 && cy < H && cx >= 0 && cx < W) {
+      const float m = ((j >> 1) ? gm.fy : 1.f - gm.fy) *
+                      ((j & 1) ? gm.fx : 1.f - gm.fx);
+      idx[j] = base + cy * W + cx;
+      w[j] = kRound ? __bfloat162float(__float2bfloat16_rn(m)) : m;
     }
   }
+}
+
+// The sampling descriptor of tap k at output pixel (y, xo) of the image
+// whose first pixel is `img`, corner indices from `base` (0: within the
+// image; img: over the batch).  A pixel past the row (xo >= W) samples
+// nothing.
+template <bool kRound>
+__device__ Tap make_tap(const float* __restrict__ offset, size_t img, int y,
+                        int xo, int k, int H, int W, int halo, int base = 0) {
+  Tap t;
+  TapGeom gm{};   // valid = false
+  if (xo < W)
+    gm = tap_geom(offset + (img + (size_t)y * W + xo) * 18, y, xo, k, H, W,
+                  halo);
+  tap_corners<kRound>(gm, base, H, W, t.idx, t.w);
   return t;
 }
 
@@ -392,77 +418,29 @@ struct TapGrad {              // one (tap, pixel) pair of the backward
   float gx[4];                // dM / d(position x)
 };
 
-// The backward's descriptor of tap k at flat pixel q = (b*H + y)*W + x.
-// Corners outside the image get idx -1: x reads 0 there, and the JAX
-// kernel's dx in the padding is discarded, so they contribute nothing.
+// The backward's descriptor of tap k at flat pixel q = (b*H + y)*W + x:
+// the forward's corners (indices over B*H*W) and their position
+// derivatives.  Corners outside the image get idx -1: x reads 0 there, and
+// the JAX kernel's dx in the padding is discarded, so they contribute
+// nothing; an invalid tap has no weight and no position derivative.
 template <bool kRound>
 __device__ TapGrad make_tap_grad(const float* __restrict__ offset, int q,
                                  int H, int W, int k, int halo) {
+  const int b = q / (H * W);
+  const int y = (q - b * H * W) / W;
+  const int xo = q - (b * H + y) * W;
+  const TapGeom gm = tap_geom(offset + (size_t)q * 18, y, xo, k, H, W, halo);
   TapGrad t;
+  tap_corners<kRound>(gm, b * H * W, H, W, t.idx, t.w);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    t.idx[j] = -1;
-    t.w[j] = t.gy[j] = t.gx[j] = 0.f;
+    const bool live = t.idx[j] >= 0;
+    // dM/dy = +-(column weight), dM/dx = +-(row weight)
+    const float colw = (j & 1) ? gm.fx : 1.f - gm.fx;
+    const float roww = (j >> 1) ? gm.fy : 1.f - gm.fy;
+    t.gy[j] = live && gm.ncy ? ((j >> 1) ? colw : -colw) : 0.f;
+    t.gx[j] = live && gm.ncx ? ((j & 1) ? roww : -roww) : 0.f;
   }
-  const int hw = H * W;
-  const int b = q / hw;
-  const int y = (q - b * hw) / W;
-  const int xo = q - b * hw - y * W;
-  const float* off = offset + (size_t)q * 18;
-  const float rig_y = (float)(y - 1 + k / 3);
-  const float rig_x = (float)(xo - 1 + k % 3);
-  const float py_raw = rig_y + off[2 * k];
-  const float px_raw = rig_x + off[2 * k + 1];
-  // an invalid tap has no weight and no position derivative
-  if (!(py_raw > -1.f && py_raw < (float)H && px_raw > -1.f &&
-        px_raw < (float)W))
-    return t;
-  // the clamp passes the derivative on the closed interval
-  const bool ncy = py_raw >= rig_y - (float)halo &&
-                   py_raw <= rig_y + (float)halo;
-  const bool ncx = px_raw >= rig_x - (float)halo &&
-                   px_raw <= rig_x + (float)halo;
-  const float py = fminf(fmaxf(py_raw, rig_y - (float)halo),
-                         rig_y + (float)halo);
-  const float px = fminf(fmaxf(px_raw, rig_x - (float)halo),
-                         rig_x + (float)halo);
-  const float y0f = floorf(py);
-  const float x0f = floorf(px);
-  const float fy = py - y0f;
-  const float fx = px - x0f;
-  const float roww[2] = {1.f - fy, fy};
-  const float colw[2] = {1.f - fx, fx};
-  const int y0 = (int)y0f;
-  const int x0 = (int)x0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int a = j >> 1;
-    const int c = j & 1;
-    const int cy = y0 + a;
-    const int cx = x0 + c;
-    if (cy >= 0 && cy < H && cx >= 0 && cx < W) {
-      t.idx[j] = b * hw + cy * W + cx;
-      const float m = roww[a] * colw[c];   // as make_tap's corner weight
-      t.w[j] = kRound ? __bfloat162float(__float2bfloat16_rn(m)) : m;
-      t.gy[j] = ncy ? (a ? colw[c] : -colw[c]) : 0.f;
-      t.gx[j] = ncx ? (c ? roww[a] : -roww[a]) : 0.f;
-    }
-  }
-  return t;
-}
-
-// The forward's descriptor at flat pixel q, corner indices over B*H*W.
-template <bool kRound>
-__device__ Tap make_tap_flat(const float* __restrict__ offset, int q, int H,
-                             int W, int k, int halo) {
-  const int hw = H * W;
-  const int b = q / hw;
-  const int y = (q - b * hw) / W;
-  const int xo = q - b * hw - y * W;
-  Tap t = make_tap<kRound>(offset, (size_t)b * hw, y, xo, k, H, W, halo);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (t.idx[j] >= 0) t.idx[j] += b * hw;
   return t;
 }
 
@@ -711,17 +689,12 @@ dcn_bwd_weight_kernel(const T* __restrict__ x,
     // 1. descriptors of the row tile's taps at the step's pixels
     for (int e = tid; e < n_taps * KP; e += NT) {
       const int q = q0 + e % KP;
-      Tap t;
-      if (q < pend) {
-        t = make_tap_flat<kBf>(offset, q, H, W, k_lo + e / KP, halo);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          t.idx[j] = -1;
-          t.w[j] = 0.f;
-        }
-      }
-      s_tap[e] = t;
+      const int b = q / (H * W);
+      const int y = (q - b * H * W) / W;
+      // corner indices over B*H*W; a pixel past the range samples nothing
+      const int xo = q < pend ? q - (b * H + y) * W : W;
+      s_tap[e] = make_tap<kBf>(offset, (size_t)b * H * W, y, xo,
+                               k_lo + e / KP, H, W, halo, b * H * W);
     }
     // 2. g tile [KP][TN]
     for (int e = tid; e < KP * TN; e += NT) {

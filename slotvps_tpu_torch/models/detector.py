@@ -3,9 +3,11 @@
 Counterpart of ``slotvps_tpu/models/detector.py``: one module tree, and the
 same two-step inference split — ``extract_features`` once per frame (its
 result is carried as the next frame's reference features) and
-``decode_pair`` for the joint two-frame slot decode.  Training uses
-``apply_backbone`` and ``decode_pair_train`` (per-stage auxiliary outputs,
-the reference frame's outputs and the normalized fine feature).
+``decode_pair`` for the joint two-frame slot decode.  Training calls the
+backbone module directly (the JAX package's ``apply_backbone`` picks a
+backbone function; here ``model.backbone`` is that choice) and
+``decode_pair_train`` (per-stage auxiliary outputs, the reference frame's
+outputs and the normalized fine feature).
 
 Ported configuration space: the ResNet backbone without stage plugins or
 R52 stem, sine position embeddings, ``compute_dtype`` "float32" or
@@ -111,12 +113,6 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
             f"init_model(device={str(device)!r}): CUDA is not available; "
             "pass device='cpu' to build the model on the CPU")
     return Detector(gen, cfg).to(device).eval()
-
-
-def apply_backbone(model: Detector, cfg: ModelConfig, img: torch.Tensor):
-    """The backbone's feature levels of ``img`` [B, H, W, 3] (NHWC, not
-    cast: the training step feeds it as the batch holds it)."""
-    return model.backbone(img)
 
 
 def extract_features(model: Detector, cfg: ModelConfig,

@@ -118,7 +118,10 @@ def _forward_kernel(x, offset, weight, halo, compute_dtype):
                                  wc.data_ptr(), out.data_ptr(), *args,
                                  b, h, w, c_in, c_out, int(halo), stream)
     _raise_on(lib, entry, rc)
-    deform_conv2d_hopper.launches[_KEY[compute_dtype]] += 1
+    key = _KEY[compute_dtype]
+    if compute_dtype == torch.bfloat16 and out.dtype == torch.float32:
+        key = "bfloat16_f32"
+    deform_conv2d_hopper.launches[key] += 1
     return out.to(x.dtype)
 
 
@@ -207,10 +210,12 @@ def deform_conv2d_hopper(x: torch.Tensor, offset: torch.Tensor,
     contiguous; weight [3, 3, Cin, Cout]; each float32 or bfloat16.
     ``compute_dtype`` (default ``x.dtype``) picks the kernel; returns
     [B, H, W, Cout] in ``x.dtype``.  Each forward kernel launch adds one to
-    ``deform_conv2d_hopper.launches[dtype name]`` ("float32" or
-    "bfloat16"); the backward counts in ``dcn_backward_hopper.launches``."""
+    ``deform_conv2d_hopper.launches[name]``: "float32", "bfloat16" (bf16
+    output) or "bfloat16_f32" (bf16 compute, f32 output: an f32 model's
+    bf16 route); the backward counts in ``dcn_backward_hopper.launches``."""
     return _DeformConv2d.apply(x, offset, weight, int(halo),
                                compute_dtype or x.dtype)
 
 
-deform_conv2d_hopper.launches = {"float32": 0, "bfloat16": 0}
+deform_conv2d_hopper.launches = {"float32": 0, "bfloat16": 0,
+                                 "bfloat16_f32": 0}

@@ -24,7 +24,6 @@ import torch
 
 from slotvps_tpu_torch.config import ModelConfig
 from slotvps_tpu_torch.models.detector import (Detector, FrameFeatures,
-                                               apply_backbone,
                                                decode_pair_train)
 from slotvps_tpu_torch.models.semantic_head import semantic_loss
 from slotvps_tpu_torch.training.losses import (dice_similarity, hungarian,
@@ -145,7 +144,7 @@ def loss_fn(model: Detector, cfg: ModelConfig, batch: TrainBatch,
                                   f"'float32', not {cfg.compute_dtype!r}")
     # forward both frames jointly (same path as inference)
     both = torch.cat([batch.ref_img, batch.img], dim=0)
-    feats = apply_backbone(model, cfg, both)
+    feats = model.backbone(both)
     fpn_outs = model.fpn(feats, num_outs=cfg.fpn.num_outs)
     _, fcn_score, feat_before = model.semantic_head(
         fpn_outs[:cfg.semantic_head.num_levels], cfg.semantic_head)

@@ -110,7 +110,7 @@ def test_bf16_kernel_f32_output(cuda_device):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32
     assert deform_conv2d_hopper.launches == dict(
-        before, bfloat16=before["bfloat16"] + 1)
+        before, bfloat16_f32=before["bfloat16_f32"] + 1)
     assert float((out - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
 
 
@@ -158,7 +158,7 @@ def test_autograd_function_runs_the_backward_kernel(cuda_device):
     out.backward(g)
     torch.cuda.synchronize()
     assert deform_conv2d_hopper.launches == dict(
-        fwd, bfloat16=fwd["bfloat16"] + 1)
+        fwd, bfloat16_f32=fwd["bfloat16_f32"] + 1)
     assert dcn_backward_hopper.launches == dict(
         bwd, bfloat16=bwd["bfloat16"] + 1)
     dx, doff, dw = dcn_backward_hopper(x.detach(), off.detach(),

@@ -2,8 +2,8 @@
 function (with ``fixed_match`` both ways, the Hungarian matching on the
 host), the whole ``loss_fn`` and its gradient tree for the small R18 model
 at ``dcn_impl="jax"`` against ``jax.value_and_grad`` of the JAX package's
-(the gradient tree mapped by ``from_jax_params``), two AdamW steps against
-``optax``, the frozen BN statistics, ``lr_schedule``, ``make_batch`` on a
+(the gradient tree mapped by ``from_jax_params``), two AdamW steps and the
+weight decay against ``optax``, the frozen BN statistics, ``lr_schedule``, ``make_batch`` on a
 tiny on-disk dataset, and the synthetic scene's TrainBatch.  The DCN
 tower's gradients on the kernel routes ("pallas", "pallas_f32") are held
 at block level in tests/test_torch_dcn_backward.py.
@@ -24,10 +24,12 @@ measured at most 2.1e-3, on the first DCN block's weight, whose gradient
 sums four levels through GroupNorm, and on the FPN below it; the
 semantic head alone agrees to 1e-6; a gradient that is 0 in exact
 arithmetic is noise of ~1e-8); the
-parameters after two AdamW steps within 4 * lr of optax's: Adam's first
-updates are lr * g / (|g| + eps), so a gradient entry near 0 whose sign
-differs between the two frameworks' sums moves its parameter by up to
-2 * lr a step."""
+optimizer fed the same gradients as optax within 1e-2 * lr (f32 rounding
+of the same update); the parameters after two whole steps within 4 * lr of
+the JAX package's: Adam's first updates are lr * g / (|g| + eps), so a
+gradient entry near 0 whose sign differs between the two frameworks' sums
+moves its parameter by up to 2 * lr a step (measured: 6 % of the entries
+move more than 1e-2 * lr apart, the largest 2.9 * lr)."""
 
 import contextlib
 import dataclasses
@@ -58,6 +60,7 @@ LOSS_RTOL = 1e-5
 STEP_RTOL = 1e-4
 GRAD_RTOL = 3e-3
 GRAD_FLOOR = 1e-5
+ADAM_ATOL = 1e-6          # 1e-2 * lr
 
 
 def _t(a):
@@ -296,9 +299,14 @@ def test_loss_fn_with_matching_matches_jax(jax_step):
 
 
 def test_two_adamw_steps_match_optax(jax_step):
-    """The port's train_step twice against two steps of the JAX package's
-    make_optimizer (BN statistics masked) on its gradients: parameters
-    within 4 * lr, the BN statistics bit-unchanged on both sides."""
+    """The port's train_step twice.  Its optimizer entry by entry against
+    the JAX package's make_optimizer (optax) fed the same gradients: every
+    parameter within ADAM_ATOL of it.  The whole step against the JAX
+    package's two steps on its own gradients: the loss after them within
+    STEP_RTOL, every parameter within 4 * lr (Adam's first updates are
+    lr * g / (|g| + eps), so an entry whose gradient lies near 0 and
+    differs in sign between the two frameworks' sums moves by up to 2 * lr
+    a step), and the BN statistics bit-unchanged on both sides."""
     cfg, params, arrays, jb, vg, (jm, grads) = jax_step
     lr = 1e-4
     opt = jstep.make_optimizer(lr=lr, params=params)
@@ -318,11 +326,34 @@ def test_two_adamw_steps_match_optax(jax_step):
     tcfg = tiny_model_cfg(config=tconfig)
     model = port_model(params, tcfg)
     before = {k: v.clone() for k, v in model.named_buffers()}
+    start = [p.detach().numpy().copy() for p in model.parameters()]
     topt = tstep.make_optimizer(model, lr=lr)
+    # the gradients each step hands its optimizer
+    seen, real_step = [], topt.step
+
+    def recording_step():
+        seen.append([p.grad.numpy().copy() for p in topt.params])
+        real_step()
+
+    topt.step = recording_step
     batch = tstep.make_train_batch(**arrays)
     for _ in range(2):
         tm = tstep.train_step(model, topt, batch, tcfg, fixed_match=True)
     assert topt.count == 2
+
+    # the optimizer: the JAX package's chain (clip, adamw) on the same
+    # gradients, over the parameters (the BN statistics are buffers)
+    ref_opt = jstep.make_optimizer(lr=lr)
+    ref = [jnp.asarray(p) for p in start]
+    ref_state = ref_opt.init(ref)
+    for step in seen:
+        updates, ref_state = ref_opt.update([jnp.asarray(g) for g in step],
+                                            ref_state, ref)
+        ref = optax.apply_updates(ref, updates)
+    for (name, p), r in zip(model.named_parameters(), ref):
+        d = np.abs(p.detach().numpy() - np.asarray(r)).max()
+        assert d <= ADAM_ATOL, (name, d)
+
     np.testing.assert_allclose(float(tm["loss_total"]),
                                float(jm["loss_total"]), rtol=STEP_RTOL)
     want = from_jax_params(jax.tree.map(np.asarray, jp), tcfg)
@@ -336,6 +367,41 @@ def test_two_adamw_steps_match_optax(jax_step):
     for name, b in model.named_buffers():
         assert torch.equal(b, before[name]), name
         np.testing.assert_array_equal(b.numpy(), want[name].numpy())
+
+
+def test_adamw_weight_decay_matches_optax(rng):
+    """Two steps of the port's AdamW against optax's chain on large
+    parameters, with the gradient 0 on half of the entries, so that the
+    decoupled weight decay alone moves those (lr and the decay raised: at
+    the reference's 1e-4 and 1e-4 it changes a parameter by 1e-8 of
+    itself, under f32's resolution in either framework)."""
+    lr, wd = 1e-2, 0.1
+    params = [rng.standard_normal(s).astype(np.float32) * 50
+              for s in ((6, 5), (11,))]
+    grads = [[np.where(rng.random(p.shape) < 0.5, 0,
+                       rng.standard_normal(p.shape)).astype(np.float32)
+              for p in params] for _ in range(2)]
+    opt = optax.chain(optax.clip_by_global_norm(1.0),
+                      optax.adamw(lr, weight_decay=wd))
+    jp = [jnp.asarray(p) for p in params]
+    state = opt.init(jp)
+    ours = [torch.nn.Parameter(_t(p)) for p in params]
+    topt = tstep.AdamW(ours, lr=lr, weight_decay=wd, clip_norm=1.0)
+    for step in grads:
+        updates, state = opt.update([jnp.asarray(g) for g in step], state,
+                                    jp)
+        jp = optax.apply_updates(jp, updates)
+        for p, g in zip(ours, step):
+            p.grad = _t(g)
+        topt.step()
+    for p, p0, g, ref in zip(ours, params, zip(*grads), jp):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(ref),
+                                   rtol=1e-6, atol=1e-5)
+        still = (g[0] == 0) & (g[1] == 0)
+        assert still.any()
+        np.testing.assert_allclose(p.detach().numpy()[still],
+                                   p0[still] * (1 - lr * wd) ** 2,
+                                   rtol=1e-6)
 
 
 def test_lr_schedule_matches_jax():
