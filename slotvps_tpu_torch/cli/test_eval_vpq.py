@@ -1,8 +1,9 @@
-"""End-to-end streaming inference + VPQ evaluation CLI for the port.
+"""End-to-end inference + VPQ evaluation CLI for the port.
 
-Counterpart of ``slotvps_tpu/cli/test_eval_vpq.py`` (streaming branch):
-build the model -> stream frames through the port's
-``InferencePipeline`` -> fuse panoptic outputs -> write pred.json +
+Counterpart of ``slotvps_tpu/cli/test_eval_vpq.py``: build the model ->
+run the frames through the port's ``InferencePipeline`` (streaming, the
+default), ``VideoScanner`` (``--scan``) or ``BatchedVideoPipeline``
+(``--batch_videos N``) -> fuse panoptic outputs -> write pred.json +
 pan_pred/*.png -> compute VPQ at window sizes 0, 5, 10, 15.  Dataset,
 fusion and VPQ are the port's own copies (``slotvps_tpu_torch/data``,
 ``slotvps_tpu_torch/eval``).
@@ -37,7 +38,8 @@ from slotvps_tpu_torch.data.dataset import CityscapesVPSDataset
 from slotvps_tpu_torch.data.loader import PrefetchLoader
 from slotvps_tpu_torch.eval import vpq as vpq_mod
 from slotvps_tpu_torch.eval.fusion import inference_panoptic_video, unify_pan_result
-from slotvps_tpu_torch.inference import InferencePipeline
+from slotvps_tpu_torch.inference import (BatchedVideoPipeline,
+                                         InferencePipeline, VideoScanner)
 from slotvps_tpu_torch.models.detector import init_model
 from slotvps_tpu_torch.utils.precision import setup_precision
 
@@ -71,6 +73,20 @@ def parse_args(argv=None):
                         "detect_capacity kept at the config's value, 64 by "
                         "default); the Retriever stays plain "
                         "(retriever_impl='jax')")
+    p.add_argument("--scan", action="store_true",
+                   help="whole-clip inference with VideoScanner: track ids "
+                        "assigned on the device and one readback of a "
+                        "clip's outputs; needs videos that align with the "
+                        "nframes_span_test chunks (raises otherwise); gives "
+                        "the streaming results")
+    p.add_argument("--batch_videos", type=int, default=0,
+                   help="run frame t of N videos as one batch through the "
+                        "backbone and decoder with BatchedVideoPipeline (one "
+                        "card); the last group is padded with copies of its "
+                        "last video whose results are dropped; needs the "
+                        "same chunk alignment as --scan; gives the "
+                        "streaming results wherever batch N gives the "
+                        "floats of batch 1")
     return p.parse_args(argv)
 
 
@@ -91,6 +107,72 @@ def resolve_device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: CUDA is not available")
     return device
+
+
+def video_chunks(dataset, cfg, batch_videos=0):
+    """Per-video item lists of ``nframes_span_test`` frames; raises unless
+    every chunk starts a video and holds no other start (the track pool and
+    the carried reference features must not bleed across videos)."""
+    span = cfg.data.nframes_span_test
+    # decode about half a group ahead, so the host's decoding overlaps the
+    # card's steps (~6 MB per decoded uint8 1024x2048 frame)
+    depth = max(2, (span * batch_videos + 1) // 2) if batch_videos else 2
+    items, done = [], 0
+    for item in PrefetchLoader(dataset, prefetch=depth):
+        items.append(item)
+        if len(items) == span or done + len(items) == len(dataset):
+            firsts = [i for i, it in enumerate(items)
+                      if it["meta"].get("is_first")]
+            if firsts != [0]:
+                raise RuntimeError(
+                    f"--scan/--batch_videos need videos aligned with "
+                    f"nframes_span_test={span} chunks, but the chunk "
+                    f"starting at frame {done} has is_first flags at "
+                    f"positions {firsts} (expected [0]); run without them "
+                    "(streaming)")
+            done += len(items)
+            yield items
+            items = []
+
+
+def run_batched(model, cfg, bsz, chunks, sizes, emit):
+    """Groups of ``bsz`` videos through :class:`BatchedVideoPipeline`; the
+    tail group is padded with copies of its last video, whose results are
+    dropped.  Prints each group's frames/s."""
+    pipeline = None
+    videos, metas = [], []
+
+    def flush():
+        nonlocal pipeline
+        nvid = len(videos)
+        while len(videos) < bsz:
+            videos.append(videos[-1])
+            metas.append(metas[-1])
+        if pipeline is None:
+            pipeline = BatchedVideoPipeline(model, cfg, bsz,
+                                            **sizes(metas[0][0]))
+            print(f"batched inference: {bsz} videos a step on "
+                  f"{pipeline.n_devices} device")
+        tg = time.time()
+        res = pipeline.run_videos(videos)
+        dt = time.time() - tg
+        n_len = len(videos[0])
+        print(f"group of {nvid} videos: {nvid * n_len} frames in {dt:.2f} s "
+              f"= {bsz * n_len / dt:.2f} frames/s (the card's steps and the "
+              "readback; the first group includes the kernels' build)")
+        for v in range(nvid):
+            for t, meta in enumerate(metas[v]):
+                emit(res[v][t], meta)
+        videos.clear()
+        metas.clear()
+
+    for items in chunks:
+        videos.append([i["img"] for i in items])
+        metas.append([i["meta"] for i in items])
+        if len(videos) == bsz:
+            flush()
+    if videos:
+        flush()
 
 
 def main(argv=None):
@@ -123,18 +205,10 @@ def main(argv=None):
         n_params = sum(p.numel() for p in model.parameters())
         print(f"Model Params : {n_params / 1e6:.2f} M on {device}")
 
-        pipeline = None
         ssegs, panos, cls_inds, obj_ids, names = [], [], [], [], []
         t0 = time.time()
-        for item in PrefetchLoader(dataset):
-            meta = item["meta"]
-            if pipeline is None:
-                # emit at ori_shape: crops the /32 padding and resizes when
-                # the processed size differs
-                pipeline = InferencePipeline(
-                    model, cfg, image_size=tuple(meta["ori_shape"][:2]),
-                    valid_hw=tuple(meta["img_shape"][:2]))
-            res = pipeline.process_frame(item["img"], meta["is_first"])
+
+        def emit(res, meta):
             ssegs.append(res.sseg)
             panos.append(res.panoptic)
             cls_inds.append(res.cls_inds)
@@ -144,6 +218,34 @@ def main(argv=None):
                 dt = time.time() - t0
                 print(f"[{len(names)}/{len(dataset)}] "
                       f"{len(names) / dt:.2f} frames/s")
+
+        # emit at ori_shape: crops the /32 padding and resizes when the
+        # processed size differs
+        def sizes(meta):
+            return dict(image_size=tuple(meta["ori_shape"][:2]),
+                        valid_hw=tuple(meta["img_shape"][:2]))
+
+        if args.scan:
+            scanner = None
+            for items in video_chunks(dataset, cfg):
+                if scanner is None:
+                    scanner = VideoScanner(model, cfg,
+                                           **sizes(items[0]["meta"]))
+                for res, it in zip(scanner.run_video(
+                        [i["img"] for i in items]), items):
+                    emit(res, it["meta"])
+        elif args.batch_videos:
+            run_batched(model, cfg, args.batch_videos,
+                        video_chunks(dataset, cfg, args.batch_videos),
+                        sizes, emit)
+        else:
+            pipeline = None
+            for item in PrefetchLoader(dataset):
+                meta = item["meta"]
+                if pipeline is None:
+                    pipeline = InferencePipeline(model, cfg, **sizes(meta))
+                emit(pipeline.process_frame(item["img"], meta["is_first"]),
+                     meta)
 
         pans_2ch = unify_pan_result(
             ssegs, panos, cls_inds, obj_ids,

@@ -2,7 +2,8 @@
 // and the semantic argmax (sseg).
 //
 // Replaces the TPU kernels of slotvps_tpu/ops/pallas/postproc_v3.py:
-// theta_v3, claim_v3, argmax_v3 (per_tile=True), repair_v3 and sseg_v3.
+// theta_v3, claim_v3, argmax_v3 (per_tile=True, and top2=True), repair_v3,
+// hist_v3 and sseg_v3.
 // Each kernel
 // computes exactly what its plain version in
 // slotvps_tpu_torch/ops/postproc_v3.py computes.  Masks are slot-major at
@@ -48,6 +49,12 @@
 //          per-tile areas; arithmetic as theta without the expf.  Areas use
 //          a shared-memory histogram with warp-aggregated atomics
 //          (__match_any_sync), since large regions give long runs of one id.
+//          With top2 it also writes the runner-up m2_id (8.4 MB): a second
+//          pass over the staged values with the winner excluded, ~3 more
+//          flops per (pixel, slot).
+//   hist   reads an int32 id map once (8.4 MB) and writes K counts: ~2.5 us
+//          of bytes.  The same warp-aggregated shared histogram, one global
+//          atomic per slot per block.
 //   repair is argmax on the dirty tiles only; clean tiles copy m1 and their
 //          area row through (typically 1-2 of 32 tiles are dirty, so the
 //          copy, 16.8 MB of traffic, is most of its time).  Launched over
@@ -58,6 +65,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int SW = 32;          // low-res columns per block strip
@@ -65,6 +74,7 @@ constexpr int FW = 4 * SW;      // full-res columns per block strip
 constexpr int NT = 4 * FW;      // threads: 4 row phases x FW columns
 constexpr int SC = SW + 2;      // staged low-res columns, with both halos
 constexpr int CT = 256;         // claim kernel threads per block
+constexpr int HT = 256;         // hist kernel threads per block
 constexpr float NEG = -1e30f;
 
 // Phase p of the x4 bilinear upsample mixes (prev, cent, next) samples as
@@ -180,7 +190,9 @@ theta_kernel(const float* __restrict__ m, const uint8_t* __restrict__ valid,
       __fadd_rn(__fadd_rn(log_thr, mx), logf(fmaxf(z, 1e-30f)));
 }
 
-// Masked argmax + per-tile areas; with `dirty` non-null, one repair
+// Masked argmax + per-tile areas; with `m2_id` non-null also the runner-up
+// (the first slot holding the max once the winner's value is -1e30, as
+// argmax_v3(top2=True) takes it); with `dirty` non-null, one repair
 // iteration: clean tiles copy m1 (and, from one block per tile, their area
 // row) and return.
 __global__ void __launch_bounds__(NT)
@@ -190,8 +202,8 @@ argmax_kernel(const float* __restrict__ m, const int8_t* __restrict__ owner,
               const uint8_t* __restrict__ dirty,
               const int32_t* __restrict__ m1,
               const int32_t* __restrict__ areas_prev,
-              int32_t* __restrict__ m_id, int32_t* __restrict__ areas, int K,
-              int h, int w, int hb) {
+              int32_t* __restrict__ m_id, int32_t* __restrict__ m2_id,
+              int32_t* __restrict__ areas, int K, int h, int w, int hb) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* R = reinterpret_cast<float*>(smem);
   int* hist = reinterpret_cast<int*>(R + (size_t)K * 4 * SC);
@@ -241,6 +253,21 @@ argmax_kernel(const float* __restrict__ m, const int8_t* __restrict__ owner,
       }
     }
     m_id[pix] = id;
+    if (m2_id != nullptr) {
+      float best2 = 0.f;
+      int id2 = 0;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
+        float v = staged_value(R, k, pr, jl, cp);
+        if (s_thing[k] && o != k) v = 0.f;
+        if (!s_kept[k] || k == id) v = NEG;
+        if (k == 0 || v > best2) {
+          best2 = v;
+          id2 = k;
+        }
+      }
+      m2_id[pix] = id2;
+    }
   }
   // warp-aggregated histogram: one shared atomic per distinct id per warp
   const unsigned peers = __match_any_sync(0xffffffffu, id);
@@ -249,6 +276,46 @@ argmax_kernel(const float* __restrict__ m, const int8_t* __restrict__ owner,
   __syncthreads();
   for (int k = threadIdx.x; k < K; k += blockDim.x)
     if (hist[k]) atomicAdd(&areas[(size_t)t * K + k], hist[k]);
+}
+
+// Per-slot pixel counts of an int32 id map of n entries (ids outside
+// [0, K) are not counted): each thread reads 4 ids per step, the warp
+// aggregates equal ids (__match_any_sync) into one shared atomic, and each
+// block adds its histogram with one global atomic per slot.  The loop runs
+// the same number of steps in every thread of a block, so every lane takes
+// part in each __match_any_sync.
+__global__ void __launch_bounds__(HT)
+hist_kernel(const int32_t* __restrict__ m_id, size_t n, int K,
+            int32_t* __restrict__ areas) {
+  extern __shared__ int hist[];
+  for (int k = threadIdx.x; k < K; k += blockDim.x) hist[k] = 0;
+  __syncthreads();
+  const size_t step = (size_t)gridDim.x * blockDim.x * 4;
+  for (size_t base = (size_t)blockIdx.x * blockDim.x * 4; base < n;
+       base += step) {
+    const size_t i = base + 4 * (size_t)threadIdx.x;
+    int ids[4];
+    if (i + 4 <= n) {
+      const int4 v = *reinterpret_cast<const int4*>(m_id + i);
+      ids[0] = v.x;
+      ids[1] = v.y;
+      ids[2] = v.z;
+      ids[3] = v.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ids[c] = i + c < n ? m_id[i + c] : -1;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int id = ids[c] >= 0 && ids[c] < K ? ids[c] : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, id);
+      if (id >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
+        atomicAdd(&hist[id], __popc(peers));
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    if (hist[k]) atomicAdd(&areas[k], hist[k]);
 }
 
 // The semantic map: per full-res pixel, the first channel holding the max
@@ -446,10 +513,12 @@ extern "C" int pp_claim(const void* m, const void* theta, const void* labels,
   return 0;
 }
 
-// m_id [4h, 4w] int32 and areas [T, K] int32 (zeroed by the caller).
+// m_id [4h, 4w] int32, areas [T, K] int32 (zeroed by the caller) and, when
+// m2_id is not null, the runner-up map [4h, 4w] int32.
 extern "C" int pp_argmax(const void* m, const void* owner, const void* kept,
-                         const void* is_thing, void* m_id, void* areas, int K,
-                         int h, int w, int hb, void* stream) {
+                         const void* is_thing, void* m_id, void* m2_id,
+                         void* areas, int K, int h, int w, int hb,
+                         void* stream) {
   cudaError_t err = set_smem((const void*)argmax_kernel, K);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w + SW - 1) / SW, h);
@@ -457,7 +526,8 @@ extern "C" int pp_argmax(const void* m, const void* owner, const void* kept,
       static_cast<const float*>(m), static_cast<const int8_t*>(owner),
       static_cast<const uint8_t*>(kept), static_cast<const uint8_t*>(is_thing),
       nullptr, nullptr, nullptr, static_cast<int32_t*>(m_id),
-      static_cast<int32_t*>(areas), K, h, w, hb);
+      static_cast<int32_t*>(m2_id), static_cast<int32_t*>(areas), K, h, w,
+      hb);
   return (int)cudaGetLastError();
 }
 
@@ -475,7 +545,25 @@ extern "C" int pp_repair(const void* m, const void* owner, const void* m1,
       static_cast<const uint8_t*>(kept), static_cast<const uint8_t*>(is_thing),
       static_cast<const uint8_t*>(dirty), static_cast<const int32_t*>(m1),
       static_cast<const int32_t*>(areas_prev), static_cast<int32_t*>(m_id),
-      static_cast<int32_t*>(areas), K, h, w, hb);
+      nullptr, static_cast<int32_t*>(areas), K, h, w, hb);
+  return (int)cudaGetLastError();
+}
+
+// Per-slot counts areas [K] int32 (zeroed by the caller) of an int32 id
+// map of n entries, 16-byte aligned; at most 1024 blocks, each looping.
+extern "C" int pp_hist(const void* m_id, long long n, int K, void* areas,
+                       void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(int) * (size_t)K));
+  if (err != cudaSuccess) return (int)err;
+  const long long per_block = 4LL * HT;
+  const int n_blocks = (int)std::max(
+      1LL, std::min(1024LL, (n + per_block - 1) / per_block));
+  hist_kernel<<<n_blocks, HT, sizeof(int) * (size_t)K,
+                (cudaStream_t)stream>>>(static_cast<const int32_t*>(m_id),
+                                        (size_t)n, K,
+                                        static_cast<int32_t*>(areas));
   return (int)cudaGetLastError();
 }
 

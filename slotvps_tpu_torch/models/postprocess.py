@@ -1,6 +1,7 @@
 """Panoptic post-processing (counterpart of
 ``slotvps_tpu/models/postprocess.py``): the reference path
-(``impl="jax"``) and the fused path (``impl="fused"``).
+(``impl="jax"``), the reference path with the claim-scan kernel
+(``impl="pallas"``) and the fused path (``impl="fused"``).
 
 Fixed slot capacity ``K`` with validity flags, as in the JAX package:
 
@@ -13,10 +14,14 @@ Fixed slot capacity ``K`` with validity flags, as in the JAX package:
  6. iterative small-area filter with argmax recompute,
  7. panoptic id remap: stuff -> class id, thing -> 11 + rank, void 255.
 
-The reference path builds the full-resolution [H, W, K] stack; its greedy
-claim loop and small-area loop are Python loops, and the claim loop visits
-only the valid thing slots (any other slot is rejected before it can claim
-a pixel, so skipping it changes nothing).
+The reference path builds the full-resolution [H, W, K] stack and
+binarizes it; its greedy claim loop (``ops/claim_scan.py``) and small-area
+loop are Python loops, and the claim loop visits only the valid thing slots
+(any other slot is rejected before it can claim a pixel, so skipping it
+changes nothing).  ``impl="pallas"`` runs the same path with the claim loop
+on the Hopper claim-scan kernel (``ops/cuda/claim_scan.py``; its plain
+version on CPU tensors), which reads the binarized [H, W, K] stack in place
+(no [K, H, W] copy), after one host sync for the valid-thing slot range.
 
 The fused path never builds that stack: four Hopper kernels
 (``ops/cuda/postproc_v3.py``; their plain versions on CPU tensors) compute
@@ -27,9 +32,6 @@ upsamples and argmaxes them in one pass.  It runs on the slot
 prefix of the capacity ladder (``detect_capacity``).  Host syncs per
 frame: one for the valid-slot counts (ladder branch and claim range), one
 per small-area check (``n_loop + 1``) and one for the kept counts.
-
-The claim-scan kernel (``impl="pallas"``) is not ported yet and raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from slotvps_tpu_torch.config import PostprocessConfig
+from slotvps_tpu_torch.ops.claim_scan import claim_scan
+from slotvps_tpu_torch.ops.cuda.claim_scan import claim_scan_hopper
 from slotvps_tpu_torch.ops.cuda.postproc_v3 import (argmax_hopper,
                                                     claim_hopper,
                                                     repair_hopper,
@@ -84,40 +88,32 @@ def _slot_order(scores, classes, cfg: PostprocessConfig):
 
 def _mask_removal_scan(logit, labels, is_thing, valid,
                        cfg: PostprocessConfig):
-    """Greedy per-slot claim loop (reference :601-639).
-
-    logit: [K, H, W] bool binarized masks.  Returns (kept [K] bool, owner
-    [H, W] int8 — claiming slot position or -1, the number of slots
-    visited).  The owner maps are updated in place."""
+    """Greedy per-slot claim loop (reference :601-639) on binarized masks
+    ``logit`` [K, H, W] bool: :func:`claim_scan` (``impl="jax"``, on any
+    device) or :func:`claim_scan_hopper` (``impl="pallas"``: the kernel on
+    the card over the valid-thing slot range, which the slot order puts
+    after the valid stuff; one host sync for it).  Returns (kept [K] bool,
+    owner [H, W] int8 — claiming slot position or -1, the number of valid
+    thing slots visited)."""
     if not cfg.apply_mask_removal_only_ins:
         raise NotImplementedError(
             "only apply_mask_removal_only_ins=True is used by the reference "
             "configs (r50_fpn_slotvps.py:72)")
-    k, h, w = logit.shape
-    if k > 127:
-        raise ValueError(f"{k} slots do not fit the int8 owner maps")
-    dev = logit.device
-    mask_sum = logit.reshape(k, -1).sum(dim=1)
-    owner = torch.full((h, w), -1, dtype=torch.int8, device=dev)
-    owner_class = torch.full((h, w), -1, dtype=torch.int8, device=dev)
-    keep_things = torch.zeros(k, dtype=torch.bool, device=dev)
-    things = torch.nonzero(valid & is_thing).flatten().tolist()
-    for i in things:
-        lg = logit[i]
-        n = mask_sum[i]
-        cls = labels[i].to(torch.int8)
-        same_class_claimed = (owner >= 0) & (owner_class == cls)
-        overlap = (lg & same_class_claimed).sum()
-        degenerate = (n == 0) | (n == h * w)
-        reject = degenerate | (overlap / torch.clamp_min(n, 1)
-                               > cfg.fraction_threshold)
-        keep_i = ~reject
-        claim = lg & (owner < 0) & keep_i
-        owner.masked_fill_(claim, i)
-        owner_class = torch.where(claim, cls, owner_class)
-        keep_things[i] = keep_i
-    kept = torch.where(is_thing, keep_things, valid)
-    return kept, owner, len(things)
+    if cfg.impl == "pallas":
+        n_valid, n_stuff = torch.stack(
+            [valid.sum(), (valid & ~is_thing).sum()]).tolist()
+        # the K-minor planes as they are: on the card a [K, H, W] copy of
+        # the 210 MB stack (K = 100) costs more than the kernel's strided
+        # reads (csrc/claim_scan.cu, PERF.md)
+        keep_things, owner = claim_scan_hopper(
+            logit, labels, is_thing, valid, cfg.fraction_threshold,
+            slots=(n_stuff, n_valid))
+        n_claim = n_valid - n_stuff
+    else:
+        keep_things, owner = claim_scan(logit, labels, is_thing, valid,
+                                        cfg.fraction_threshold)
+        n_claim = int((valid & is_thing).sum())
+    return torch.where(is_thing, keep_things, valid), owner, n_claim
 
 
 def _dedup_map(labels, is_thing, kept):
@@ -246,13 +242,9 @@ def postprocess_frame(
 
     ``impl="fused"`` runs the kernels when the target is 4x the mask size
     and mask removal is on; otherwise, as in the JAX package, the
-    reference path."""
-    if cfg.impl == "pallas":
-        raise NotImplementedError(
-            "postprocess impl='pallas' needs the claim-scan kernel "
-            "(slotvps_tpu/ops/pallas/claim_scan.py), not ported yet; use "
-            "impl='fused' or impl='jax'")
-    if cfg.impl not in ("jax", "fused"):
+    reference path, whose claim loop runs on the claim-scan kernel with
+    ``impl="pallas"``."""
+    if cfg.impl not in ("jax", "fused", "pallas"):
         raise ValueError(f"unknown postprocess impl {cfg.impl!r}")
     k = pred_logits.shape[0]
     h, w = out_size

@@ -5,12 +5,13 @@
 its plain version in :mod:`slotvps_tpu_torch.ops.postproc_v3`:
 
 * :func:`theta_hopper`, :func:`claim_hopper`, :func:`argmax_hopper`,
-  :func:`repair_hopper`, :func:`sseg_hopper`.
+  :func:`repair_hopper`, :func:`hist_hopper`, :func:`sseg_hopper`.
 
 On CPU tensors a wrapper runs the plain version; on CUDA tensors it
 launches its kernel or raises — there is no fallback.  Each kernel launch
 adds one to the wrapper's ``launches`` count (the claim loop is one launch
-per slot of its range plus one).  The wrappers allocate every output;
+per slot of its range plus one; ``argmax_hopper(top2=True)`` counts in
+``argmax_hopper.top2_launches``).  The wrappers allocate every output;
 kernels launch on PyTorch's current stream and do not synchronise.
 """
 
@@ -32,11 +33,12 @@ def _declare(lib: ctypes.CDLL):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pp_theta.argtypes = [p, p, f, p, i, i, i, p]
     lib.pp_claim.argtypes = [p, p, p, p, f, i, i, i, i, i, p, p, p, p]
-    lib.pp_argmax.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.pp_argmax.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.pp_hist.argtypes = [p, ctypes.c_longlong, i, p, p]
     lib.pp_repair.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.pp_sseg.argtypes = [p, p, i, i, i, p]
     for fn in (lib.pp_theta, lib.pp_claim, lib.pp_argmax, lib.pp_repair,
-               lib.pp_sseg):
+               lib.pp_hist, lib.pp_sseg):
         fn.restype = i
     lib.pp_error_string.argtypes = [i]
     lib.pp_error_string.restype = ctypes.c_char_p
@@ -159,26 +161,34 @@ def claim_hopper(m_klow: torch.Tensor, theta_map: torch.Tensor,
 
 
 def argmax_hopper(m_klow: torch.Tensor, owner: torch.Tensor,
-                  kept: torch.Tensor, is_thing: torch.Tensor):
-    """(m_id [4h, 4w] int32, areas_tile [T, K] int32) (see
-    :func:`plain.argmax`)."""
+                  kept: torch.Tensor, is_thing: torch.Tensor,
+                  top2: bool = False):
+    """(m_id [4h, 4w] int32, areas_tile [T, K] int32), with ``top2`` (m_id,
+    m2_id [4h, 4w] int32, areas_tile) (see :func:`plain.argmax`).  One
+    launch either way, counted in ``argmax_hopper.launches`` or, with
+    ``top2``, in ``argmax_hopper.top2_launches``."""
     if not _on_card("argmax_hopper", m_klow, (kept, is_thing),
                     owner=(owner, torch.int8)):
-        return plain.argmax(m_klow, owner, kept, is_thing)
+        return plain.argmax(m_klow, owner, kept, is_thing, top2=top2)
     k, h, w = m_klow.shape
     dev = m_klow.device
     hb = plain.tile_rows(h)
     kept8 = _slot_vec("argmax_hopper", "kept", kept, k, dev)
     thing8 = _slot_vec("argmax_hopper", "is_thing", is_thing, k, dev)
     m_id = torch.empty((4 * h, 4 * w), dtype=torch.int32, device=dev)
+    m2_id = torch.empty_like(m_id) if top2 else None
     areas = torch.zeros((h // hb, k), dtype=torch.int32, device=dev)
     lib = LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.pp_argmax(m_klow.data_ptr(), owner.data_ptr(),
                            kept8.data_ptr(), thing8.data_ptr(),
-                           m_id.data_ptr(), areas.data_ptr(), k, h, w, hb,
-                           _stream(dev))
+                           m_id.data_ptr(),
+                           m2_id.data_ptr() if top2 else None,
+                           areas.data_ptr(), k, h, w, hb, _stream(dev))
     _raise_on(rc, "pp_argmax")
+    if top2:
+        argmax_hopper.top2_launches += 1
+        return m_id, m2_id, areas
     argmax_hopper.launches += 1
     return m_id, areas
 
@@ -223,6 +233,32 @@ def repair_hopper(m_klow: torch.Tensor, owner: torch.Tensor,
     return m_id, areas
 
 
+def hist_hopper(m_id: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-slot pixel counts [k] int32 of an int32 id map (see
+    :func:`plain.hist`); on the card the map is contiguous and 16-byte
+    aligned, and 1 <= k <= 4096."""
+    if m_id.device.type == "cpu":
+        return plain.hist(m_id, k)
+    if m_id.device.type != "cuda":
+        raise ValueError("hist_hopper: the id map must lie on a CUDA device "
+                         "(or on the CPU)")
+    if m_id.dtype != torch.int32 or not m_id.is_contiguous() \
+            or m_id.data_ptr() % 16:
+        raise TypeError("hist_hopper: the id map must be a contiguous, "
+                        f"16-byte aligned int32 tensor, got {m_id.dtype}")
+    if not 1 <= k <= 4096:
+        raise ValueError(f"hist_hopper: k={k}; the kernel takes 1...4096")
+    dev = m_id.device
+    areas = torch.zeros((k,), dtype=torch.int32, device=dev)
+    lib = LIBRARY.load()
+    with torch.cuda.device(dev):
+        rc = lib.pp_hist(m_id.data_ptr(), m_id.numel(), k, areas.data_ptr(),
+                         _stream(dev))
+    _raise_on(rc, "pp_hist")
+    hist_hopper.launches += 1
+    return areas
+
+
 def sseg_hopper(score_hwc: torch.Tensor) -> torch.Tensor:
     """The semantic map [4h, 4w] int64 of quarter-res logits [h, w, C] f32
     (see :func:`plain.sseg`)."""
@@ -252,5 +288,6 @@ def sseg_hopper(score_hwc: torch.Tensor) -> torch.Tensor:
 
 
 for _fn in (theta_hopper, claim_hopper, argmax_hopper, repair_hopper,
-            sseg_hopper):
+            hist_hopper, sseg_hopper):
     _fn.launches = 0
+argmax_hopper.top2_launches = 0

@@ -1,7 +1,7 @@
 """Fused panoptic post-processing, plain PyTorch versions (counterpart of
 ``slotvps_tpu/ops/pallas/postproc_v3.py``).
 
-Five functions of whole tensors, each the plain version of one hand-written
+Seven functions of whole tensors, each the plain version of one hand-written
 Hopper kernel (``ops/cuda/postproc_v3.py``) and of one TPU kernel:
 
 * :func:`theta`  — per-pixel binarization threshold
@@ -9,9 +9,11 @@ Hopper kernel (``ops/cuda/postproc_v3.py``) and of one TPU kernel:
 * :func:`claim`  — the sequential greedy claim loop over valid thing slots
   (``claim_v3``),
 * :func:`argmax` — masked per-pixel argmax with per-tile per-slot areas
-  (``argmax_v3(per_tile=True)``),
+  (``argmax_v3(per_tile=True)``), and with ``top2`` the runner-up map
+  (``argmax_v3(top2=True)``),
 * :func:`repair` — one small-area-filter iteration that recomputes the
-  argmax on dirty row tiles only (``repair_v3``);
+  argmax on dirty row tiles only (``repair_v3``),
+* :func:`hist`   — per-slot pixel counts of an id map (``hist_v3``),
 * :func:`sseg`   — the semantic map of quarter-res logits: x4 upsample and
   channel argmax (``sseg_v3``).
 
@@ -35,6 +37,7 @@ import math
 
 import torch
 
+from slotvps_tpu_torch.ops.claim_scan import claim_scan
 from slotvps_tpu_torch.ops.interpolate import upsample_x4_bilinear
 
 _NEG = -1e30
@@ -70,47 +73,25 @@ def theta(m_klow: torch.Tensor, valid: torch.Tensor,
 def claim(m_klow: torch.Tensor, theta_map: torch.Tensor,
           labels: torch.Tensor, is_thing: torch.Tensor, valid: torch.Tensor,
           fraction_threshold: float):
-    """Greedy claim loop over the valid thing slots in slot order.
-
-    Slot i binarizes as ``up_i >= theta``; with n = its pixel count and
-    ovl = its pixels already owned by a slot of its own class, it is
-    rejected if ``n == 0``, ``n == 4h*4w`` or ``f32(ovl) / f32(max(n, 1))
-    > f32(fraction_threshold)``; a kept slot claims its unowned pixels.
+    """Greedy claim loop over the valid thing slots in slot order, on the
+    planes ``up_i >= theta``: :func:`slotvps_tpu_torch.ops.claim_scan.
+    claim_scan` (n = a plane's pixel count, ovl = its pixels already owned
+    by a slot of its own class; rejected if ``n == 0``, ``n == 4h*4w`` or
+    ``f32(ovl) / f32(max(n, 1)) > f32(fraction_threshold)``; a kept slot
+    claims its unowned pixels).
     Returns (keep_things [K] bool, owner [4h, 4w] int8, -1 = unowned)."""
-    k = m_klow.shape[0]
-    if k > 127:
-        raise ValueError(f"{k} slots do not fit the int8 owner maps")
-    up = upsample_slots(m_klow)
-    dev = up.device
-    n_pix = up.shape[1] * up.shape[2]
-    owner = torch.full(up.shape[1:], -1, dtype=torch.int8, device=dev)
-    keep = torch.zeros(k, dtype=torch.bool, device=dev)
-    frac = torch.tensor(fraction_threshold, dtype=torch.float32, device=dev)
-    labels_l = labels.long()
-    for i in torch.nonzero(valid & is_thing).flatten().tolist():
-        lg = up[i] >= theta_map
-        n = lg.sum()
-        owned = owner >= 0
-        same = owned & (labels_l[owner.long().clamp_min(0)] == labels_l[i])
-        ovl = (lg & same).sum()
-        reject = ((n == 0) | (n == n_pix)
-                  | (ovl.float() / n.clamp_min(1).float() > frac))
-        keep_i = ~reject
-        owner.masked_fill_(lg & ~owned & keep_i, i)
-        keep[i] = keep_i
-    return keep, owner
+    return claim_scan(upsample_slots(m_klow) >= theta_map, labels, is_thing,
+                      valid, fraction_threshold)
 
 
-def _masked_argmax(up, owner, kept, is_thing):
-    """Per-pixel winner: thing slots count only where they own the pixel
-    (elsewhere 0.0), slots not kept are -1e30; ties go to the first
-    slot."""
+def _masked_vals(up, owner, kept, is_thing):
+    """[K, H, W] values of the masked argmax: thing slots count only where
+    they own the pixel (elsewhere 0.0), slots not kept are -1e30."""
     k = up.shape[0]
     pos = torch.arange(k, device=up.device)[:, None, None]
     vals = torch.where(is_thing[:, None, None] & (owner[None].long() != pos),
                        0.0, up)
-    vals = torch.where(kept[:, None, None], vals, _NEG)
-    return torch.argmax(vals, dim=0).to(torch.int32)
+    return torch.where(kept[:, None, None], vals, _NEG)
 
 
 def tile_areas(m_id: torch.Tensor, k: int, hb: int) -> torch.Tensor:
@@ -124,12 +105,22 @@ def tile_areas(m_id: torch.Tensor, k: int, hb: int) -> torch.Tensor:
 
 
 def argmax(m_klow: torch.Tensor, owner: torch.Tensor, kept: torch.Tensor,
-           is_thing: torch.Tensor):
-    """Masked argmax + per-tile areas.  Returns (m_id [4h, 4w] int32,
-    areas_tile [T, K] int32)."""
+           is_thing: torch.Tensor, top2: bool = False):
+    """Masked argmax (ties to the first slot) + per-tile areas.  Returns
+    (m_id [4h, 4w] int32, areas_tile [T, K] int32); with ``top2`` (m_id,
+    m2_id, areas_tile), where m2_id [4h, 4w] int32 is the runner-up: the
+    argmax with the winner's value set to -1e30 (excluded by index, first
+    index on ties, so it names the winner again where every other slot is
+    at -1e30 and the winner comes first)."""
     k, h, _ = m_klow.shape
-    m_id = _masked_argmax(upsample_slots(m_klow), owner, kept, is_thing)
-    return m_id, tile_areas(m_id, k, tile_rows(h))
+    vals = _masked_vals(upsample_slots(m_klow), owner, kept, is_thing)
+    m_id = torch.argmax(vals, dim=0)
+    areas = tile_areas(m_id, k, tile_rows(h))
+    if not top2:
+        return m_id.to(torch.int32), areas
+    pos = torch.arange(k, device=vals.device)[:, None, None]
+    m2_id = torch.argmax(torch.where(pos == m_id[None], _NEG, vals), dim=0)
+    return m_id.to(torch.int32), m2_id.to(torch.int32), areas
 
 
 def repair(m_klow: torch.Tensor, owner: torch.Tensor, m1: torch.Tensor,
@@ -145,6 +136,14 @@ def repair(m_klow: torch.Tensor, owner: torch.Tensor, m1: torch.Tensor,
     rows = dirty.repeat_interleave(4 * hb)[:, None]
     return (torch.where(rows, m_new, m1),
             torch.where(dirty[:, None], areas_new, areas_tile_prev))
+
+
+def hist(m_id: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-slot pixel counts [k] int32 of an id map ``m_id`` (any shape);
+    ids outside [0, k) are not counted."""
+    ids = m_id.flatten().long()
+    ids = torch.where((ids >= 0) & (ids < k), ids, k)
+    return torch.bincount(ids, minlength=k + 1)[:k].to(torch.int32)
 
 
 def sseg(score_hwc: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """The Hopper kernels against their plain PyTorch versions, on the card:
 the DCN kernel in f32 and bf16 (forward, the bf16 forward's f32 output,
 the backward and its autograd Function), the five fused-postprocess
-kernels (theta, claim, argmax, repair, sseg) and the slot-attention
-kernel.
+kernels (theta, claim, argmax with and without its runner-up map, repair,
+hist, sseg), the claim-scan kernel and the slot-attention kernel.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the tests' conftest helpers, so it also runs on a
@@ -18,12 +18,15 @@ is summed with f32 atomics, in an order that varies from run to run; dW is
 summed in a fixed order and must be equal from run to run); slot attention
 <= 1e-4 * max |plain| (f32 sums in another order); theta within 1e-5 *
 max(1, |theta|) (the sum of exp in another order); the integer outputs of
-claim, argmax, repair and sseg are bit-identical, given identical inputs."""
+claim, argmax (top2 too), repair, hist, sseg and the claim scan are
+bit-identical, given identical inputs."""
 
 import pytest
 import torch
 
 from slotvps_tpu_torch.ops import postproc_v3 as plain
+from slotvps_tpu_torch.ops.claim_scan import claim_scan
+from slotvps_tpu_torch.ops.cuda.claim_scan import claim_scan_hopper
 from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
 from slotvps_tpu_torch.ops.cuda.deform_conv import (dcn_backward_hopper,
                                                     deform_conv2d_hopper)
@@ -328,3 +331,120 @@ def test_postproc_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         slot_attention_hopper(q, q, q)
     with pytest.raises(TypeError, match="bfloat16"):
         slot_attention_hopper(q[:, :8].float(), q.float(), q.float())
+
+
+def _planes(dev, b, k, h, w, seed=0):
+    """Binarized [B, K, H, W] planes of the postprocess case (up >= theta)
+    with its slot vectors, one set per video."""
+    cases = [_postproc_case(dev, k, h // 4, w // 4, seed=seed + i)
+             for i in range(b)]
+    planes = torch.stack([plain.upsample_slots(m) >= plain.theta(m, v, 0.4)
+                          for m, _, v, _ in cases])
+    labels, valid, is_thing = (torch.stack([c[i] for c in cases])
+                               for i in (1, 2, 3))
+    return planes, labels, is_thing, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,h,w", [(1, 24, 64, 96), (2, 100, 160, 280),
+                                     (3, 127, 36, 52)])
+def test_claim_scan_kernel_matches_plain(cuda_device, b, k, h, w):
+    planes, labels, is_thing, valid = _planes(cuda_device, b, k, h, w)
+    keep_ref, owner_ref = claim_scan(planes, labels, is_thing, valid, 0.03)
+    before = claim_scan_hopper.launches
+    keep, owner = claim_scan_hopper(planes, labels, is_thing, valid, 0.03)
+    torch.cuda.synchronize()
+    assert claim_scan_hopper.launches == before + k + 1
+    assert torch.equal(keep, keep_ref) and torch.equal(owner, owner_ref)
+    assert 0 < int(keep.sum()) < int((valid & is_thing).sum())
+    # the K-minor stack ([H, W, K] permuted), int8 planes, and one video
+    hwk = planes.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    keep2, owner2 = claim_scan_hopper(hwk, labels, is_thing, valid, 0.03)
+    keep3, owner3 = claim_scan_hopper(planes[-1].to(torch.int8), labels[-1],
+                                      is_thing[-1], valid[-1], 0.03)
+    torch.cuda.synchronize()
+    assert torch.equal(keep2, keep_ref) and torch.equal(owner2, owner_ref)
+    assert torch.equal(keep3, keep_ref[-1]) \
+        and torch.equal(owner3, owner_ref[-1])
+
+
+@pytest.mark.cuda
+def test_claim_scan_at_the_rule_and_over_a_slot_range(cuda_device):
+    """Overlaps of 3/100 (kept), 4/100 and 1/33 (rejected), all-0 and all-1
+    planes; a range holding every valid thing slot gives the full result."""
+    h, w = 16, 32
+    sets = [range(0, 100), range(97, 197), [5, *range(300, 332)],
+            [10, 11, 12, 13, *range(350, 446)], [], range(h * w)]
+    planes = torch.zeros((8, h * w), dtype=torch.bool)
+    for i, px in enumerate(sets):
+        planes[i + 1, list(px)] = True
+    planes = planes.reshape(8, h, w).to(cuda_device)
+    labels = torch.full((8,), 11, device=cuda_device)
+    labels[0] = 3
+    valid = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    valid[7] = False
+    is_thing = labels > 10
+    keep, owner = claim_scan_hopper(planes, labels, is_thing, valid, 0.03,
+                                    slots=(1, 7))
+    keep_ref, owner_ref = claim_scan(planes, labels, is_thing, valid, 0.03)
+    torch.cuda.synchronize()
+    assert keep.tolist() == [False, True, True, False, False, False, False,
+                             False]
+    assert torch.equal(keep, keep_ref) and torch.equal(owner, owner_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 8, 32), (64, 64, 128)])
+def test_argmax_top2_and_hist_kernels_match_plain(cuda_device, shape):
+    k, h, w = shape
+    m, labels, valid, is_thing = _postproc_case(cuda_device, k, h, w)
+    th = plain.theta(m, valid, 0.4)
+    keep, owner = plain.claim(m, th, labels, is_thing, valid, 0.03)
+    kept = torch.where(is_thing, keep, valid)
+    before = (hv3.argmax_hopper.launches, hv3.argmax_hopper.top2_launches,
+              hv3.hist_hopper.launches)
+    m1, m2, areas = hv3.argmax_hopper(m, owner, kept, is_thing, top2=True)
+    r1, r2, r_areas = plain.argmax(m, owner, kept, is_thing, top2=True)
+    hist = hv3.hist_hopper(r1, k)
+    tail = r1.flatten()[4:-2].clone()     # a length not a multiple of 4
+    odd = hv3.hist_hopper(tail, k + 3)
+    torch.cuda.synchronize()
+    assert torch.equal(m1, r1) and torch.equal(m2, r2) \
+        and torch.equal(areas, r_areas)
+    assert (m1 != m2).any()
+    assert torch.equal(hist, plain.hist(r1, k))
+    assert torch.equal(hist, torch.bincount(r1.flatten().long(),
+                                            minlength=k).int())
+    assert torch.equal(odd, plain.hist(tail, k + 3))
+    assert (hv3.argmax_hopper.launches, hv3.argmax_hopper.top2_launches,
+            hv3.hist_hopper.launches) == (before[0], before[1] + 1,
+                                          before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_claim_scan_and_hist_wrappers_reject_what_they_do_not_take(
+        cuda_device):
+    planes, labels, is_thing, valid = _planes(cuda_device, 1, 24, 32, 48)
+    with pytest.raises(TypeError, match="1-byte"):
+        claim_scan_hopper(planes.float(), labels, is_thing, valid, 0.03)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        claim_scan_hopper(planes, labels.cpu(), is_thing, valid, 0.03)
+    with pytest.raises(ValueError, match="one stride"):
+        claim_scan_hopper(planes.transpose(2, 3), labels, is_thing, valid,
+                          0.03)
+    with pytest.raises(ValueError, match="int8 owner"):
+        claim_scan_hopper(torch.zeros((128, 4, 4), dtype=torch.bool,
+                                      device=cuda_device),
+                          torch.zeros(128, device=cuda_device),
+                          torch.ones(128, dtype=torch.bool,
+                                     device=cuda_device),
+                          torch.ones(128, dtype=torch.bool,
+                                     device=cuda_device), 0.03)
+    with pytest.raises(ValueError, match="slots"):
+        claim_scan_hopper(planes, labels, is_thing, valid, 0.03,
+                          slots=(0, 25))
+    m_id = torch.zeros((8, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        hv3.hist_hopper(m_id.long(), 4)
+    with pytest.raises(TypeError, match="aligned"):
+        hv3.hist_hopper(m_id.flatten()[1:], 4)

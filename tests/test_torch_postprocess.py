@@ -127,21 +127,38 @@ def test_dedup_map_high_class_ids():
 
 @pytest.mark.parametrize("impl", ["fused", "pallas"])
 def test_kernel_routes_not_ported_yet(impl):
-    """impl='pallas' needs the claim-scan kernel, not ported; the fused
-    path, quarter-res semantic logits included (semantic_head fused_sseg:
-    the sseg kernel's wrapper, its plain version on CPU), is ported and
-    gives the semantic map of the reference staging."""
+    """The two kernel routes, both ported now (the name is the one this
+    test had while they were not).  The fused path, quarter-res semantic
+    logits included (semantic_head fused_sseg: the sseg kernel's wrapper,
+    its plain version on CPU), gives the semantic map of the reference
+    staging.  impl='pallas' (the claim-scan kernel's wrapper, its plain
+    version on CPU) equals the JAX package's impl='pallas' (claim_scan_pallas
+    in Pallas interpret mode) and the port's impl='jax', to the tolerances
+    of :func:`_assert_same`."""
     rng = np.random.default_rng(0)
     logits, masks, cfg = _case(rng)
+    if impl == "pallas":
+        from jax.experimental.pallas import tpu as pltpu
+
+        fcn = rng.standard_normal((64, 96, 19)).astype(np.float32)
+        emb = rng.standard_normal((K, D)).astype(np.float32)
+        pcfg = dataclasses.replace(cfg, impl="pallas")
+        with pltpu.force_tpu_interpret_mode():
+            ref, ours = _both(logits, masks, emb, fcn, (64, 96), pcfg)
+        _assert_same(ref, ours)
+        plain = postprocess_frame(
+            torch.from_numpy(logits), torch.from_numpy(masks),
+            torch.from_numpy(emb), torch.from_numpy(fcn), (64, 96),
+            _port_cfg(dataclasses.replace(cfg, impl="jax")))
+        for name in ("kept", "panoptic", "sseg", "thing_rank"):
+            assert torch.equal(getattr(ours, name), getattr(plain, name))
+        assert ours.n_claim == plain.n_claim > 0
+        assert ours.n_things > 0
+        return
     fcn = torch.from_numpy(rng.standard_normal((16, 24, 19)).astype(
-        np.float32)) if impl == "fused" else torch.zeros((64, 96, 19))
+        np.float32))
     args = (torch.from_numpy(logits), torch.from_numpy(masks),
             torch.zeros((K, D)), fcn, (64, 96))
-    if impl == "pallas":
-        with pytest.raises(NotImplementedError, match="claim-scan"):
-            postprocess_frame(*args, _port_cfg(dataclasses.replace(
-                cfg, impl=impl)))
-        return
     from slotvps_tpu_torch.ops.interpolate import upsample_x4_bilinear
 
     r = postprocess_frame(*args, _port_cfg(dataclasses.replace(
