@@ -22,7 +22,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      and the current frame), each level at its halo, with offsets that
      clamp some taps: the DCN forward kernel on the f32 model's bf16 route
      (f32 x and offsets, bf16 compute, f32 output), and the DCN backward
-     kernel in f32 and in bf16 against the plain backward.
+     kernel in f32 and in bf16 against the plain backward (dx, doff and dW
+     each equal in two runs).
   4. slice    — r50_fpn_slotvps at full width and 1024x2048, the JAX
      package's tuned stack with the slot-attention kernel (bf16, bf16 DCN
      kernel, fused_sseg, fused postprocess, retriever_impl="pallas"),
@@ -37,6 +38,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      through postprocess_frame with impl="fused" (the kernels, sseg on the
      quarter-res logits) and impl="jax" (the reference path): equal sseg,
      panoptic >= 99.99 %.
+  5b. fused   — the counterparts of postproc_fused.py's three TPU kernels
+     (theta, claim, argmax-areas on K-minor [h, w, K] masks) as a chain on
+     two inputs: 256x512x100 random-normal masks (the JAX package's
+     profiling shape) and the bf16 path's first clip frame; launches
+     counted; each kernel against its plain version; on the real frame the
+     chain against the v3 kernels' chain on the same masks (bit-identical
+     given the same theta); kernel and plain times.
   6. stages   — per-stage times of the frame (device synchronize between
      stages) for the bf16 and the f32 path, the postprocess with each impl,
      and a torch.profiler pass each: device time by kernel and busy share.
@@ -49,14 +57,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      the f32 path (K = 100; B = 1 and B = 2; and the K-minor layout against
      the contiguous copy); BatchedVideoPipeline with B = 2 videos of 2
      frames on the f32 path with postprocess impl="pallas" against the same
-     run with impl="jax" (bit-identical) and both postprocess stages'
-     times; BatchedVideoPipeline with B = 2 videos of 3 frames on the bf16
-     path, ms per lockstep step, frames/s and peak memory, every DCN and
+     run with impl="jax" and against each video's streaming run (both
+     bit-identical) and both postprocess stages' times;
+     BatchedVideoPipeline with B = 2 videos of 3 frames on the bf16 path
+     against each video's streaming run (bit-identical), every DCN and
      slot-attention call of the run against its plain version (slot
-     attention's in float64) on the inputs the batched path gives it, the
-     same run with the features taken one frame at a time against each
-     video's streaming run (bit-identical), and the batched run against
-     streaming (sseg 98.5 %);
+     attention's in float64) on the inputs the batched path gives it, ms
+     per lockstep step, frames/s and peak memory;
      VideoScanner on the bf16 path over the clip's first 3 frames against
      their streaming results (bit-identical).  Each run's launch counts
      are set to 0 just before it and read just after.
@@ -134,17 +141,11 @@ PAN_AGREE = 0.9999
 # ADV_MIN_PAN_MATCHED), with panoptic ids matched by overlap
 PLAIN_BF16_SSEG = 0.97
 PLAIN_BF16_PAN = 0.30
-# batched vs streaming runs of the same videos: tests/test_torch_tuned.py's
-# floors (SSEG_AGREE, PAN_AGREE, panoptic ids matched by overlap).  The f32
-# path is held to both.  On the bf16 path cuDNN's convolutions give a frame
-# other floats at batch 2 than at batch 1 (cudnn.deterministic or not), and
-# the calibrated decode turns them into other kept slots as it does any
-# bf16 perturbation; so the bf16 batched run's semantic map is held to
-# SERVE_SSEG_AGREE, its panoptic map only to this regime's bf16 floor
-# (PLAIN_BF16_PAN), and that only beside a control: the same run with the
-# features taken one frame at a time must equal streaming bit for bit
-SERVE_SSEG_AGREE = 0.985
-SERVE_PAN_AGREE = 0.92
+# (h, w, K) of the K-minor postprocess chain's first input: the shape that
+# slotvps_tpu's profiling script (_prof.py, section "kern") gives
+# postproc_fused.py, random-normal masks of a 1024x2048 frame, every slot
+# valid, labels 0..18, things > 10
+FUSED_SHAPE = (256, 512, 100)
 # published H100 SXM peaks at 700 W: f32 outside the tensor cores, dense
 # bf16 on the tensor cores, HBM
 F32_FLOPS = 67e12
@@ -168,6 +169,7 @@ TRAIN_GRAD_RTOL = 1e-3
 TRAIN_GRAD_FLOOR = 1e-6
 SRC = "slotvps_tpu_torch/csrc/"
 PV3 = "slotvps_tpu/ops/pallas/postproc_v3.py"
+PFU = "slotvps_tpu/ops/pallas/postproc_fused.py"
 DCN_TPU = "slotvps_tpu/ops/pallas/deform_conv.py:44"
 DCN_BWD_TPU = "slotvps_tpu/ops/pallas/deform_conv.py:301"
 # kernel -> (source, the TPU kernel it replaces, the path it belongs to)
@@ -191,6 +193,12 @@ KERNELS = {
     "claim_scan_hopper": (SRC + "claim_scan.cu",
                           "slotvps_tpu/ops/pallas/claim_scan.py:29",
                           "batched_pallas"),
+    "theta_fused_hopper": (SRC + "postproc_v3.cu", PFU + ":104",
+                           "fused_chain"),
+    "claim_scan_fused_hopper": (SRC + "postproc_v3.cu", PFU + ":210",
+                                "fused_chain"),
+    "argmax_areas_hopper": (SRC + "postproc_v3.cu", PFU + ":275",
+                            "fused_chain"),
     # reachable from no entry point: their launches are read on the
     # batched claim-scan path's run (0)
     "argmax_hopper_top2": (SRC + "postproc_v3.cu", PV3 + ":351", "tests"),
@@ -205,6 +213,7 @@ def log(phase, msg):
 def wrappers():
     """name -> kernel wrapper with an integer ``launches`` count (the DCN
     wrapper counts per dtype: see :func:`launch_counts`)."""
+    from slotvps_tpu_torch.ops.cuda import postproc_fused as pfu
     from slotvps_tpu_torch.ops.cuda import postproc_v3 as pv3
     from slotvps_tpu_torch.ops.cuda.claim_scan import claim_scan_hopper
     from slotvps_tpu_torch.ops.cuda.slot_attention import (
@@ -217,7 +226,10 @@ def wrappers():
             "sseg_hopper": pv3.sseg_hopper,
             "slot_attention_hopper": slot_attention_hopper,
             "claim_scan_hopper": claim_scan_hopper,
-            "hist_hopper": pv3.hist_hopper}
+            "hist_hopper": pv3.hist_hopper,
+            "theta_fused_hopper": pfu.theta_fused_hopper,
+            "claim_scan_fused_hopper": pfu.claim_scan_fused_hopper,
+            "argmax_areas_hopper": pfu.argmax_areas_hopper}
 
 
 def launch_counts():
@@ -397,7 +409,7 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
     """DCN backward kernel vs the plain backward at every (level, block)
     shape of the training step, computing in ``dtype`` (f32 inputs, as the
     f32 model gives them): dx, doff and dW each within DCN_RTOL of the
-    plain version's max, dW equal from run to run."""
+    plain version's max, and each equal in two runs."""
     from slotvps_tpu_torch.ops.cuda.deform_conv import dcn_backward_hopper
     from slotvps_tpu_torch.ops.deform_conv import deform_conv2d_backward
 
@@ -426,13 +438,13 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
                       for n, r in zip(("dx", "doff", "dW"), ref)}
             ok = (all(bool(torch.isfinite(a).all()) for a in out)
                   and all(errs[n] <= rtol * scales[n] for n in errs)
-                  and torch.equal(out[2], again[2]))
+                  and all(torch.equal(a, b) for a, b in zip(out, again)))
             p = b * h * w
             # inputs (x and W in the compute dtype, f32 offsets, g) read
             # once, dx, doff and dW written once in f32; dsample and dW are
-            # each 2*9*Cin*Cout flops a pixel in the compute dtype; the
-            # scatter, the sample recompute and the offset sums 24 f32
-            # flops per (pixel, tap, input channel)
+            # each 2*9*Cin*Cout flops a pixel in the compute dtype; the dx
+            # sums, the sample recompute and the offset sums 24 f32 flops
+            # per (pixel, tap, input channel)
             n_bytes = (size * (p * (cin + cout) + 9 * cin * cout)
                        + 4 * (p * (cin + 36) + 9 * cin * cout))
             row = dict(shape=f"P{li + 2} {b}x{h}x{w} {cin}->{cout} halo "
@@ -451,8 +463,8 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
             if not ok:
                 raise AssertionError(
                     f"{dtype} DCN backward disagrees at {row['shape']}: "
-                    f"errors {errs} vs {rtol} x {scales}, or dW differs "
-                    "from run to run")
+                    f"errors {errs} vs {rtol} x {scales}, or dx, doff or dW "
+                    "differs from run to run")
             rows.append(row)
     return rows
 
@@ -777,10 +789,11 @@ def check_results(results, h, w, stuff_num, cfg):
 
 def expected_launches(cfg, results, steps=None):
     """Each kernel's launches on the path of ``cfg``, from what the frames
-    report: the DCN of the path's dtype 3 blocks x levels per backbone call
-    (one per frame, or per lockstep ``steps`` of a batched run), sseg one
+    report: the DCN of the path's dtype 3 blocks x levels per frame (the
+    batched pipeline, too, runs the backbone one frame at a time), sseg one
     per frame on quarter-res logits, slot attention one per decoder stage
-    and frame of the pair per call, and the postprocess of the path's impl
+    and frame of the pair per decoder call (one per frame, or per lockstep
+    ``steps`` of a batched run), and the postprocess of the path's impl
     per frame: fused, theta and argmax one each, the claim loop one per
     valid thing slot plus one, repair one per small-area iteration;
     "pallas", the claim scan one per valid thing slot plus one."""
@@ -790,7 +803,7 @@ def expected_launches(cfg, results, steps=None):
     dcn = {"pallas": "deform_conv2d_hopper_bf16",
            "pallas_f32": "deform_conv2d_hopper"}[m.semantic_head.dcn_impl]
     want = dict.fromkeys(KERNELS, 0)
-    want[dcn] = 3 * m.semantic_head.num_levels * calls
+    want[dcn] = 3 * m.semantic_head.num_levels * n
     if m.slot_head.retriever_impl == "pallas":
         want["slot_attention_hopper"] = \
             2 * sum(m.slot_head.per_dh_num_heads) * calls
@@ -1401,6 +1414,167 @@ def phase_top2_hist(dev, shape=PP_SHAPES[0], n_valid=PP_VALID, timed=True):
     return rows
 
 
+def _fused_inputs(dev, model, cfg, frame):
+    """The two inputs of the K-minor chain, each (label, m_hwk [h, w, K]
+    f32, valid, labels, is_thing): FUSED_SHAPE's random-normal masks (every
+    slot valid, labels 0..18, things > 10) and one real frame's low-res
+    mask logits of ``cfg``'s path with its own valid, label and thing
+    vectors, in the postprocess's slot order (stuff, things, invalid)."""
+    from slotvps_tpu_torch.models.postprocess import _slot_order
+
+    h, w, k = FUSED_SHAPE
+    g = torch.Generator(device=dev).manual_seed(11)
+    labels = torch.randint(0, 19, (k,), generator=g, device=dev)
+    prof = ("random", torch.randn((h, w, k), generator=g, device=dev),
+            torch.ones(k, dtype=torch.bool, device=dev), labels, labels > 10)
+    pcfg = cfg.model.postprocess
+    outs = _decoder_outputs(model, cfg, [frame], dev)[0]
+    probs = torch.softmax(outs.pred_logits[0], dim=-1)
+    scores, classes = probs.amax(dim=-1), probs.argmax(dim=-1)
+    perm, valid = _slot_order(scores, classes, pcfg)
+    classes = classes[perm]
+    masks = outs.pred_masks[0][perm].float()
+    real = ("frame", masks.permute(1, 2, 0).contiguous(), valid[perm],
+            classes, classes > pcfg.num_stuff - 1)
+    return prof, real
+
+
+def _fused_chain(m, valid, labels, is_thing, thr, frac):
+    """theta -> claim -> argmax-areas through the K-minor kernels' wrappers:
+    (theta, keep, owner, m_id, areas)."""
+    from slotvps_tpu_torch.ops.cuda import postproc_fused as pfu
+
+    th = pfu.theta_fused_hopper(m, valid, thr)
+    keep, owner = pfu.claim_scan_fused_hopper(m, th, labels, is_thing, valid,
+                                              frac)
+    kept = torch.where(is_thing, keep, valid)
+    m_id, areas = pfu.argmax_areas_hopper(m, owner, kept, is_thing)
+    return th, keep, owner, m_id, areas
+
+
+def phase_fused_chain(dev, model, cfg, frame, timed=True):
+    """The counterparts of postproc_fused.py's three TPU kernels (theta,
+    claim, argmax-areas on K-minor [h, w, K] masks) as a chain on two
+    inputs (:func:`_fused_inputs`): the chain's launch counts (set to 0
+    just before, read just after); each kernel against its plain version on
+    the same inputs (theta within THETA_RTOL * max(1, |theta|), integer
+    outputs bit-identical); on the real frame, the chain against the v3
+    chain on the same masks slot-major (theta_hopper, claim_hopper,
+    argmax_hopper): theta within THETA_RTOL, and, given the same theta,
+    keep, owner, m_id and areas bit-identical.  Kernel and plain ms of
+    both inputs; the kernels line takes the random input's.  Returns
+    ({kernel: row}, stats)."""
+    from slotvps_tpu_torch.ops import postproc_fused as plain
+    from slotvps_tpu_torch.ops.cuda import postproc_fused as pfu
+    from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
+
+    pcfg = cfg.model.postprocess
+    thr, frac = pcfg.pixel_threshold, pcfg.fraction_threshold
+    inputs = _fused_inputs(dev, model, cfg, frame)
+    chains, launches, _, _ = _run_counted(dev, lambda: [
+        _fused_chain(*case[1:], thr, frac) for case in inputs])
+    n_claims = sum(int((case[2] & case[4]).sum()) + 1 for case in inputs)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(theta_fused_hopper=2, claim_scan_fused_hopper=n_claims,
+                argmax_areas_hopper=2)
+    _check_launches("fused_chain", launches, want)
+    rows = {}
+    for (label, m, valid, labels, is_thing), chain in zip(inputs, chains):
+        th, keep, owner, m_id, areas = chain
+        h, w, k = m.shape
+        th_ref = plain.theta_fused(m, valid, thr)
+        keep_k, owner_k = pfu.claim_scan_fused_hopper(m, th_ref, labels,
+                                                      is_thing, valid, frac)
+        keep_r, owner_r = plain.claim_scan_fused(m, th_ref, labels, is_thing,
+                                                 valid, frac)
+        kept_r = torch.where(is_thing, keep_r, valid)
+        m_id_k, areas_k = pfu.argmax_areas_hopper(m, owner_r, kept_r,
+                                                  is_thing)
+        m_id_r, areas_r = plain.argmax_areas(m, owner_r, kept_r, is_thing)
+        _sync(dev)
+        theta_rel = float(((th - th_ref).abs()
+                           / th_ref.abs().clamp_min(1.0)).max())
+        errs = {"theta_fused_hopper": float((th - th_ref).abs().max()),
+                "claim_scan_fused_hopper": int((keep_k != keep_r).sum())
+                + int((owner_k != owner_r).sum()),
+                "argmax_areas_hopper": int((m_id_k != m_id_r).sum())
+                + int((areas_k != areas_r).sum())}
+        n_valid = int(valid.sum())
+        n_things = int((valid & is_thing).sum())
+        n_kept_things = int((keep_r & valid & is_thing).sum())
+        regime = dict(input=label, shape=[h, w, k], valid=n_valid,
+                      things=n_things, kept_things=n_kept_things,
+                      owned_share=float((owner_r >= 0).float().mean()),
+                      segments=len(torch.unique(m_id_r)),
+                      theta_rel_err=theta_rel)
+        log("fused", json.dumps(regime))
+        if theta_rel > THETA_RTOL or errs["claim_scan_fused_hopper"] \
+                or errs["argmax_areas_hopper"]:
+            raise AssertionError(f"K-minor postprocess kernels disagree "
+                                 f"with their plain versions on the "
+                                 f"{label} input: theta rel {theta_rel:.3e}, "
+                                 f"mismatches {errs}")
+        if label == "frame":
+            # the v3 chain on the same masks, slot-major, given the fused
+            # chain's theta
+            m_khw = m.permute(2, 0, 1).contiguous()
+            th3 = hv3.theta_hopper(m_khw, valid, thr)
+            keep3, owner3 = hv3.claim_hopper(m_khw, th, labels, is_thing,
+                                             valid, frac)
+            kept3 = torch.where(is_thing, keep3, valid)
+            m_id3, areas_t = hv3.argmax_hopper(m_khw, owner3, kept3,
+                                               is_thing)
+            _sync(dev)
+            v3_rel = float(((th - th3).abs() / th3.abs().clamp_min(1.0))
+                           .max())
+            same = dict(keep=torch.equal(keep, keep3),
+                        owner=torch.equal(owner, owner3),
+                        m_id=torch.equal(m_id, m_id3),
+                        areas=torch.equal(areas, areas_t.sum(0, dtype=
+                                                             torch.int32)))
+            log("fused", f"[frame] against the v3 chain: theta rel "
+                         f"{v3_rel:.3e} (bit-equal {torch.equal(th, th3)}), "
+                         f"given the same theta equal: {json.dumps(same)}")
+            if v3_rel > THETA_RTOL or not all(same.values()):
+                raise AssertionError(f"the K-minor chain differs from the "
+                                     f"v3 chain on the real frame: theta "
+                                     f"rel {v3_rel:.3e}, equal {same}")
+            if not n_kept_things:
+                raise AssertionError(f"the real frame lost its regime: "
+                                     f"{regime}")
+        n_kept = int(kept_r.sum())
+        bounds = _pp_bounds(k, h, w, n_valid, n_things, n_kept,
+                            n_kept_things, 0.0, 1)
+        bounds = {"theta_fused_hopper": bounds["theta_hopper"],
+                  "claim_scan_fused_hopper": bounds["claim_hopper"],
+                  "argmax_areas_hopper": bounds["argmax_hopper"]}
+        calls = {
+            "theta_fused_hopper": (
+                lambda: pfu.theta_fused_hopper(m, valid, thr),
+                lambda: plain.theta_fused(m, valid, thr)),
+            "claim_scan_fused_hopper": (
+                lambda: pfu.claim_scan_fused_hopper(m, th_ref, labels,
+                                                    is_thing, valid, frac),
+                lambda: plain.claim_scan_fused(m, th_ref, labels, is_thing,
+                                               valid, frac)),
+            "argmax_areas_hopper": (
+                lambda: pfu.argmax_areas_hopper(m, owner_r, kept_r,
+                                                is_thing),
+                lambda: plain.argmax_areas(m, owner_r, kept_r, is_thing)),
+        }
+        for name, (kern, ref) in calls.items():
+            b_ms, b_by = bound(*bounds[name])
+            row = dict(kernel=name, input=label, K=k,
+                       max_abs_err=errs[name], bound_ms=b_ms, bound_by=b_by)
+            if timed:
+                row["ms"] = _cuda_ms(kern)
+                row["plain_ms"] = _cuda_ms(ref, n=5, warmup=1)
+            log("fused", json.dumps(row))
+            if label == "random":
+                rows[name] = row
+    return rows, dict(path="fused_chain", launches=launches)
+
+
 def _planes_of(model, cfg, frames, dev):
     """The binarized [K, H, W] planes, slot vectors and slot range that
     the impl="pallas" postprocess hands the claim-scan kernel, for each
@@ -1512,10 +1686,10 @@ def phase_batched_pallas(dev, model, cfg, videos):
     (f32) with postprocess impl="pallas" (the claim-scan kernel), against
     the same run with impl="jax" (the plain claim loop on the card): the
     floats upstream of the claim are the same, so every output must be
-    bit-identical.  Each video against its streaming run (SERVE_SSEG_AGREE,
-    SERVE_PAN_AGREE; the f32 decode gives other floats at batch 2 too, by
-    ~1e-3 of the calibrated class logits).  Then the postprocess stage of
-    both impls on one frame's decoder outputs."""
+    bit-identical.  Each video against its streaming run: bit-identical
+    (the backbone runs one frame at a time; maps, classes, scores and ids).
+    Then the postprocess stage of both impls on one frame's decoder
+    outputs."""
     from slotvps_tpu_torch.inference import BatchedVideoPipeline
 
     size = videos[0][0].shape[1:3]
@@ -1541,7 +1715,8 @@ def phase_batched_pallas(dev, model, cfg, videos):
         if impl == "pallas":
             pallas_cfg = c
             stats = dict(path="batched_pallas", launches=launches,
-                         wall_s=wall, peak_mem_gib=peak)
+                         wall_s=wall, ms_per_step=wall / len(videos[0]) * 1e3,
+                         frames_per_s=len(flat) / wall, peak_mem_gib=peak)
     for v, (a_v, b_v) in enumerate(zip(runs["pallas"], runs["jax"])):
         for t, (a, b) in enumerate(zip(a_v, b_v)):
             diff = _same_results(a, b)
@@ -1554,16 +1729,16 @@ def phase_batched_pallas(dev, model, cfg, videos):
     for v, (got, video) in enumerate(zip(runs["pallas"], videos)):
         ref = phase_slice_results(model, pallas_cfg, video)
         for t, (a, b) in enumerate(zip(ref, got)):
-            sseg, pan, pan_m = _agreement(a, b)
-            log("batched", f"[f32] video {v} frame {t} against streaming: "
-                           f"sseg agreement {sseg:.6f}, panoptic {pan:.6f} "
-                           f"({pan_m:.6f} with ids matched); things "
-                           f"{len(b.cls_inds)}/{len(a.cls_inds)}")
-            if sseg < SERVE_SSEG_AGREE or pan_m < SERVE_PAN_AGREE:
-                raise AssertionError(f"batched f32 video {v} frame {t} "
-                                     f"below the floors against "
-                                     f"streaming: sseg {sseg}, matched "
-                                     f"panoptic {pan_m}")
+            diff = _same_results(a, b)
+            if diff:
+                sseg, pan, pan_m = _agreement(a, b)
+                raise AssertionError(
+                    f"batched f32 video {v} frame {t} differs from "
+                    f"streaming in {diff}: sseg agreement {sseg}, panoptic "
+                    f"{pan} ({pan_m} with ids matched), things "
+                    f"{len(b.cls_inds)}/{len(a.cls_inds)}")
+    log("batched", "[f32] == streaming bit for bit: maps, classes, scores "
+                   "and track ids of every video and frame")
     outs = _decoder_outputs(model, cfg, videos[0], dev)
     post_ms = {}
     for impl in ("pallas", "jax"):
@@ -1574,6 +1749,7 @@ def phase_batched_pallas(dev, model, cfg, videos):
     log("batched", f"[f32] postprocess stage ms (median of "
                    f"{len(outs)} frames): " + json.dumps(post_ms))
     stats["post_ms"] = post_ms
+    log("batched", "[f32] " + json.dumps(stats))
     return stats
 
 
@@ -1673,79 +1849,13 @@ def _batched_kernels_checked(dev, pipe, videos, first):
     return summary
 
 
-def _per_frame_extract(real):
-    """``extract_features`` that feeds the backbone, the FPN and the
-    semantic head one frame at a time and concatenates the features."""
-    from slotvps_tpu_torch.models.detector import FrameFeatures
-
-    def extract(model, m, x):
-        feats = [real(model, m, x[i:i + 1]) for i in range(x.shape[0])]
-        return FrameFeatures(
-            tuple(torch.cat(level) for level in
-                  zip(*(f.feat_trans for f in feats))),
-            torch.cat([f.fcn_output for f in feats]))
-    return extract
-
-
-def _rel_diff(a, b):
-    d = (a.float() - b.float()).abs()
-    return dict(share_differing=float((d > 0).float().mean()),
-                max_over_max=float(d.max() / a.float().abs().max()
-                                   .clamp_min(1e-30)))
-
-
-def _per_frame_backbone_control(dev, model, cfg, videos, streams):
-    """The control that pins the batched run's gap to streaming on the
-    backbone side: frame t of each video through extract_features at batch
-    1 (the features concatenated), everything else as BatchedVideoPipeline
-    does it (pinned uploads, batched decode_pair, per-video postprocess and
-    tracking).  It must equal each video's streaming run bit for bit.  Also
-    prints how far the batch-2 features of the first step lie from the
-    per-frame ones."""
-    import slotvps_tpu_torch.inference as inf
-
-    real = inf.extract_features
-    per_frame = _per_frame_extract(real)
-    x = inf._device_normalize(torch.from_numpy(np.concatenate(
-        [v[0] for v in videos])).to(dev), cfg.data)
-    with torch.inference_mode():
-        both, alone = real(model, cfg.model, x), per_frame(model, cfg.model,
-                                                           x)
-    feats = {"fcn_output": _rel_diff(alone.fcn_output, both.fcn_output)}
-    feats.update({f"feat_trans[{i}]": _rel_diff(a, b) for i, (a, b) in
-                  enumerate(zip(alone.feat_trans, both.feat_trans))})
-    del both, alone
-    pipe = inf.BatchedVideoPipeline(model, cfg, len(videos),
-                                    image_size=videos[0][0].shape[1:3])
-    inf.extract_features = per_frame
-    try:
-        res, _, wall, _ = _run_counted(dev, lambda: pipe.run_videos(videos))
-    finally:
-        inf.extract_features = real
-    for v, (got, ref) in enumerate(zip(res, streams)):
-        for t, (a, b) in enumerate(zip(ref, got)):
-            diff = _same_results(a, b)
-            if diff:
-                raise AssertionError(
-                    f"batched bf16 with per-frame features, video {v} frame "
-                    f"{t}: differs from streaming in {diff}, so the batched "
-                    "gap does not come from the backbone side alone")
-    stats = dict(features_batch2_vs_batch1=feats,
-                 control_ms_per_step=wall / len(videos[0]) * 1e3)
-    log("batched", "[bf16] with per-frame features == streaming bit for "
-                   "bit, every video and frame; " + json.dumps(stats))
-    return stats
-
-
 def phase_batched_tuned(dev, model, cfg, videos, streams):
     """BatchedVideoPipeline, B = 2 videos of 3 frames, on the bf16 tuned
-    path (the JAX package's bench configuration): its launches; a second
-    run with every DCN and slot-attention call held to a reference on the
-    batched inputs (:func:`_batched_kernels_checked`); the per-frame
-    features control (:func:`_per_frame_backbone_control`), which must
-    equal streaming bit for bit; each video against its streaming run
-    (SERVE_SSEG_AGREE, and PLAIN_BF16_PAN beside the control: see there);
-    then a timed run (ms per lockstep step, frames/s, peak memory)."""
+    path (the JAX package's bench configuration): its launches; each video
+    against its streaming run, bit for bit (maps, classes, scores and ids);
+    a second run with every DCN and slot-attention call held to a reference
+    on the batched inputs (:func:`_batched_kernels_checked`); then a timed
+    run (ms per lockstep step, frames/s, peak memory)."""
     from slotvps_tpu_torch.inference import BatchedVideoPipeline
 
     size = videos[0][0].shape[1:3]
@@ -1756,28 +1866,24 @@ def phase_batched_tuned(dev, model, cfg, videos, streams):
     _check_launches("batched_bf16", launches,
                     expected_launches(cfg, [r for v in res for r in v],
                                       steps=t_len))
-    checked = _batched_kernels_checked(dev, pipe, videos, res)
-    control = _per_frame_backbone_control(dev, model, cfg, videos, streams)
     for v, (got, ref) in enumerate(zip(res, streams)):
         for t, (a, b) in enumerate(zip(ref, got)):
-            sseg, pan, pan_m = _agreement(a, b)
-            segs = [len(set(np.unique(x.panoptic).tolist()) - {255})
-                    for x in (b, a)]
-            log("batched", f"[bf16] video {v} frame {t}: sseg agreement "
-                           f"{sseg:.6f}, panoptic {pan:.6f} ({pan_m:.6f} "
-                           f"with ids matched); things kept "
-                           f"{len(b.cls_inds)}/{len(a.cls_inds)}, segments "
-                           f"{segs[0]}/{segs[1]} (batched/streaming)")
-            if sseg < SERVE_SSEG_AGREE or pan_m < PLAIN_BF16_PAN:
-                raise AssertionError(f"batched bf16 video {v} frame {t} "
-                                     f"below the floors: sseg {sseg}, "
-                                     f"matched panoptic {pan_m}")
+            diff = _same_results(a, b)
+            if diff:
+                sseg, pan, pan_m = _agreement(a, b)
+                raise AssertionError(
+                    f"batched bf16 video {v} frame {t} differs from "
+                    f"streaming in {diff}: sseg agreement {sseg}, panoptic "
+                    f"{pan} ({pan_m} with ids matched), things "
+                    f"{len(b.cls_inds)}/{len(a.cls_inds)}")
+    log("batched", "[bf16] == streaming bit for bit: maps, classes, scores "
+                   "and track ids of every video and frame")
+    checked = _batched_kernels_checked(dev, pipe, videos, res)
     _, _, wall2, peak2 = _run_counted(dev, lambda: pipe.run_videos(videos))
     stats = dict(path="batched_bf16", launches=launches,
                  first_run_s=wall, ms_per_step=wall2 / t_len * 1e3,
                  frames_per_s=len(videos) * t_len / wall2,
-                 peak_mem_gib=max(peak, peak2), kernels_checked=checked,
-                 **control)
+                 peak_mem_gib=max(peak, peak2), kernels_checked=checked)
     log("batched", "[bf16] " + json.dumps(stats))
     return stats
 
@@ -1822,14 +1928,16 @@ def _device_time_by_kernel(prof):
 
 
 def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, serving_rows,
-           stats, build_s):
+           fused_rows, stats, build_s):
     """The kernels line: the DCN per frame (sums over its 12 shapes) in
     each dtype, its f32-model bf16 route and its backward per training step
     (sums over the step's 12 shapes), the postprocess kernels at the given
-    K's rows, sseg, and slot attention per frame (its 14 calls).  ``launches`` comes from the run of the path
-    each kernel belongs to (KERNELS); ``serving_rows`` are the claim scan
-    (one frame, K = 100) and the two postproc_v3 entries only tests reach,
-    whose launches are read on the batched claim-scan run."""
+    K's rows, sseg, and slot attention per frame (its 14 calls).
+    ``launches`` comes from the run of the path each kernel belongs to
+    (KERNELS); ``serving_rows`` are the claim scan (one frame, K = 100)
+    and the two postproc_v3 entries only tests reach, whose launches are
+    read on the batched claim-scan run; ``fused_rows`` the K-minor chain's
+    three kernels on its random input (FUSED_SHAPE)."""
     rows = []
     for name, peak in (("deform_conv2d_hopper", F32_FLOPS),
                        ("deform_conv2d_hopper_bf16", BF16_FLOPS),
@@ -1872,11 +1980,17 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, serving_rows,
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row.get("library_ms"),
             build_s=build_s[lib]))
+    for name, row in fused_rows.items():
+        rows.append(dict(
+            name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], build_s=build_s["postproc_v3"]))
     for kern in rows:
         source, replaces, path = KERNELS[kern["name"]]
         # no single PyTorch call computes these functions: torchvision's
-        # deform_conv2d is absent; each v3 kernel fuses the x4 upsample into
-        # its reduction (sseg: interpolate + argmax is two calls); slot
+        # deform_conv2d is absent; each postprocess kernel (v3 and K-minor)
+        # fuses the x4 upsample into its reduction (sseg: interpolate +
+        # argmax is two calls); slot
         # attention sums over the axis that scaled_dot_product_attention
         # does not normalise
         # (torch.bincount for hist)
@@ -1907,6 +2021,7 @@ def main():
     results, stats = phase_slice(dev, cfg, model, frames, "bf16")
     results32, stats32 = phase_slice(dev, cfg32, model, frames[:3], "f32")
     phase_postproc(model, cfg, frames, dev)
+    fused_rows, fused_stats = phase_fused_chain(dev, model, cfg, frames[0])
     phase_stages(model, cfg, frames, "bf16")
     phase_stages(model, cfg32, frames[:3], "f32")
     phase_plain(model, cfg, frames, results, results32)
@@ -1934,8 +2049,9 @@ def main():
         raise AssertionError(f"the clip took ladder branch {k_path}, not "
                              f"one of the timed shapes {list(pp_rows)}")
     kernels = report(dcn_rows, bwd_rows, pp_rows[k_path], sseg_row, sa_row,
-                     serving_rows,
+                     serving_rows, fused_rows,
                      {"bf16": stats, "f32": stats32, "train": train_stats,
+                      "fused_chain": fused_stats,
                       "train_f32": train32_stats,
                       "batched_pallas": batched32_stats,
                       "tests": batched32_stats, "batched_bf16": batched_stats,

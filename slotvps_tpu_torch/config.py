@@ -97,26 +97,29 @@ class SemanticHeadConfig:
     ignore_label: int = 255
     loss_weight: float = 0.5
     gn_groups: int = 32
-    # 'jax' = pure-XLA gather implementation, 'pallas' = TPU kernel.
+    # 'jax' = the plain PyTorch DCN (ops/deform_conv.py, f32 sums);
+    # 'pallas' = the bf16 Hopper kernel (csrc/deform_conv.cu, tensor cores,
+    # f32 sums); 'pallas_f32' = the same kernel in f32.  The names are the
+    # JAX package's.
     dcn_impl: str = "jax"
     # True: skip the x4 upsample and carry QUARTER-res fcn logits; the
-    # fused postprocess upsamples+argmaxes them in one Pallas kernel
-    # (sseg_v3) so the full-res [H, W, 19] tensor (whose 19-channel minor
-    # axis pads toward 128 lanes on TPU) never exists.  Exactness is
-    # preserved on every route: non-fused/resized paths first upsample x4
-    # then resize, matching the reference staging.
+    # fused postprocess upsamples+argmaxes them in one kernel
+    # (csrc/postproc_v3.cu sseg_kernel) so the full-res [H, W, 19] tensor
+    # never exists.  Exactness is preserved on every route:
+    # non-fused/resized paths first upsample x4 then resize, matching the
+    # reference staging.
     fused_sseg: bool = False
     # DCN sampling-halo radius in pixels: offsets beyond +-halo of a tap's
     # rigid position are clamped (the reference CUDA kernel is unbounded —
     # deform_conv_cuda_kernel.cu deformable_im2col).  0 = per-impl default
     # (8 for 'jax', 4 for the tuned 'pallas' kernel).  A per-level tuple
     # (P2..P5 order, len == num_levels) sets each pyramid level's halo
-    # independently — the halo is the dominant FLOP knob of the Pallas
-    # kernel (contracted dim = (2*halo+2)*window), and fine levels need
-    # smaller sampling ranges than coarse ones.  Checkpoint loading
-    # measures the max offset the converted conv_offset heads emit on a
-    # calibration image PER LEVEL and auto-raises any level that would
-    # clamp (utils/diagnostics.py).
+    # independently: fine levels need smaller sampling ranges than coarse
+    # ones, and the halo bounds the window of input pixels a tap can reach
+    # (the backward's dx pass in csrc/deform_conv.cu scans that window).
+    # Checkpoint loading measures the max offset the converted conv_offset
+    # heads emit on a calibration image PER LEVEL and auto-raises any level
+    # that would clamp (utils/diagnostics.py).
     dcn_halo: "int | Tuple[int, ...]" = 0
 
     def level_halo(self, level: int) -> int:
@@ -161,7 +164,9 @@ class SlotHeadConfig:
         TemporalQueryAttentionConfig()
     )
     apply_temporal_query_atten_stages: Tuple[int, ...] = (3, 4, 5, 6)
-    # 'jax' = plain einsum slot attention; 'pallas' = blockwise TPU kernel.
+    # 'jax' = plain slot attention in the activations' dtype; 'pallas' =
+    # the Hopper kernel (csrc/slot_attention.cu: bf16 in, f32 scores,
+    # softmax and output).
     retriever_impl: str = "jax"
 
 
@@ -190,9 +195,10 @@ class PostprocessConfig:
     filter_small_option: str = "4"  # '4' | '4_256' | '4096_256'
     num_classes: int = 20
     num_stuff: int = 11
-    # 'jax' = pure-XLA pipeline; 'pallas' = VMEM-resident claim-scan kernel;
-    # 'fused' = fully fused TPU kernels that never materialize the
-    # [H, W, K] upsampled mask stack (ops/pallas/postproc_fused.py)
+    # 'jax' = the plain reference path; 'pallas' = the reference path with
+    # its claim loop on the claim-scan kernel (csrc/claim_scan.cu); 'fused'
+    # = the kernels of csrc/postproc_v3.cu (theta, claim, argmax, repair,
+    # sseg), which never materialize the [H, W, K] upsampled mask stack
     impl: str = "jax"
     # dtype of the [H, W, K] upsampled mask stack: 'bfloat16' halves the
     # HBM traffic of every postproc pass (the stack is 800 MB in f32 at

@@ -57,31 +57,44 @@
 // its rounding points in bf16 (slotvps_tpu_torch/ops/deform_conv.py:
 // deform_conv2d_backward is its plain version):
 //   dsample_k = g . W_k^T               (f32 sums; rounded to bf16 in bf16)
-//   dx       += M_k^T dsample_k         (scatter of the bilinear gather)
+//   dx        = sum of M_k^T dsample_k  (the transpose of the bilinear gather)
 //   dW_k      = samples_k^T . g         (samples M_k x recomputed; rounded)
 //   doff_k    = sum over corners of dM_k/dp x (dsample_k . x_corner)
 // with M the corner weights (rounded to bf16 in bf16) and dM their f32
 // position derivatives: the y derivative is gated on "not clamped in y",
 // the x derivative on "valid and not clamped in x" (an invalid tap has no
-// weight and so no y derivative either).  It is three passes:
+// weight and so no y derivative either).  Every output is summed in a fixed
+// order, so each is the same on every run.  Four passes:
 //   1. data pass: a block owns BPB consecutive pixels (flat over B*H*W,
 //      so ragged widths need no padding), stages their g rows once, and
 //      walks the taps and Cin in chunks of CKD: the chunk's dsample
 //      [BPB, CKD] is a product of the g tile and a W^T tile (wmma bf16 with
 //      f32 accumulators in bf16, f32 FMA in f32); then one warp per pixel
-//      and one lane per channel scatters M x dsample into dx with f32
-//      atomicAdd (dx's order of sums varies from run to run) and reduces
-//      dsample x x_corner over the lanes into the pixel's four corner sums;
-//      after the last chunk of a tap, doff = sum of dM x corner sum.
-//   2. weight pass: dW as a [9*Cin, Cout] product over pixels, in TM x TN
+//      and one lane per channel writes dsample, in the compute dtype, to a
+//      scratch buffer ds [B*H*W, 9, Cin] and reduces dsample x x_corner
+//      over the lanes into the pixel's four corner sums; after the last
+//      chunk of a tap, doff = sum of dM x corner sum.
+//   2. dx pass (a gather, as the JAX kernel's sliding row window sums dx in
+//      a fixed order): a block owns a tile of XH x XW input pixels of one
+//      image and XC input channels, one warp per tile row and two channels
+//      per lane.  A sample's corners lie within halo+1 rows above and
+//      halo+2 rows below its output pixel (columns alike), so only output
+//      pixels within that window of the tile reach it.  Output row by
+//      output row, the block recomputes the window's tap descriptors into
+//      shared memory; each warp scans them in order, finds with a ballot
+//      the taps with a corner on its row, and adds M x dsample (read from
+//      ds, XU taps' loads in flight at once) into its pixels' shared-memory
+//      sums: each sum is taken by one lane, in a fixed order (output row,
+//      column, tap, corner).
+//   3. weight pass: dW as a [9*Cin, Cout] product over pixels, in TM x TN
 //      tiles, each block summing one range of pixels (split K) into its own
 //      partial: it recomputes its samples from the corner descriptors and
 //      multiplies them with the g tile (wmma in bf16, FMA in f32).
-//   3. a reduction of the partials in split order: dW is the same on every
-//      run.
+//   4. a reduction of the partials in split order.
 // What bounds the backward: ~2x the forward's contraction (dsample and dW,
-// each as large as the forward's product); the dx scatter issues 36 f32
-// atomics per (pixel, input channel), which the bound does not count.
+// each as large as the forward's product); ds is written once and read
+// about four times (once per corner; the bound counts neither), 0.74 GB in
+// bf16 at the largest training level (2 x 200 x 400 pixels, Cin 256).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -482,7 +495,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 dcn_bwd_data_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                     const T* __restrict__ weight, const T* __restrict__ g,
-                    float* __restrict__ dx, float* __restrict__ doff,
+                    T* __restrict__ ds, float* __restrict__ doff,
                     int n_pix, int H, int W, int Cin, int Cout, int halo,
                     DataSmem sm) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
@@ -591,24 +604,25 @@ dcn_bwd_data_kernel(const T* __restrict__ x, const float* __restrict__ offset,
         for (int i = 0; i < 8; ++i) s_ds[p * LDS + cb + i] = acc[i];
       }
       __syncthreads();
-      // 4. one warp per pixel, one lane per channel: dx += M x dsample
-      //    (f32 atomics), corner sums of dsample x x_corner over the lanes
+      // 4. one warp per pixel, one lane per channel: dsample to ds (for
+      //    the dx pass), corner sums of dsample x x_corner over the lanes
       for (int p = warp; p < BPB; p += NT / 32) {
+        if (p0 + p >= n_pix) continue;   // warp-uniform
         const TapGrad t = s_tap[p];
-        if (t.idx[0] < 0 && t.idx[1] < 0 && t.idx[2] < 0 && t.idx[3] < 0)
-          continue;   // warp-uniform: an invalid tap or a pixel past the end
         const int c = c0 + lane;
+        float d = 0.f;
+        if (c < Cin) {
+          d = round_to<T>(s_ds[p * LDS + lane]);
+          ds[((size_t)(p0 + p) * 9 + k) * Cin + c] = from_f32<T>(d);
+        }
+        if (t.idx[0] < 0 && t.idx[1] < 0 && t.idx[2] < 0 && t.idx[3] < 0)
+          continue;   // warp-uniform: an invalid tap
         float part[4] = {0.f, 0.f, 0.f, 0.f};
         if (c < Cin) {
-          const float d = round_to<T>(s_ds[p * LDS + lane]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (t.idx[j] >= 0) {
-              const size_t a = (size_t)t.idx[j] * Cin + c;
-              part[j] = d * to_f32(x[a]);
-              if (t.w[j] != 0.f) atomicAdd(dx + a, t.w[j] * d);
-            }
-          }
+          for (int j = 0; j < 4; ++j)
+            if (t.idx[j] >= 0)
+              part[j] = d * to_f32(x[(size_t)t.idx[j] * Cin + c]);
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -635,6 +649,147 @@ dcn_bwd_data_kernel(const T* __restrict__ x, const float* __restrict__ offset,
       }
       doff[(size_t)(p0 + tid) * 18 + 2 * k] = gy;
       doff[(size_t)(p0 + tid) * 18 + 2 * k + 1] = gx;
+    }
+  }
+}
+
+constexpr int XH = NT / 32;   // input rows per block of the dx pass (a warp
+                              // each)
+constexpr int XW = 32;        // input columns per block of the dx pass
+constexpr int XC = 64;        // input channels per block (two per lane)
+constexpr int XU = 4;         // taps whose dsample loads are in flight at once
+constexpr int kNoRow = -(1 << 28);   // DxTap.y0 of a tap that samples nothing
+
+struct DxTap {                // one (output pixel, tap) of the dx pass
+  int y0, x0;                 // top-left corner of the clamped sample
+  float w[4];                 // corner weights M (0 outside the image)
+};
+
+// Shared memory of the dx pass at a halo: the tile's sums [XH][XW][XC] and
+// one output row's tap descriptors [(XW + 2*halo + 3) * 9].
+size_t dx_smem_bytes(int halo) {
+  return sizeof(float) * XH * XW * XC +
+         sizeof(DxTap) * (size_t)(XW + 2 * halo + 3) * 9;
+}
+
+// Channels c and c+1 of one dsample row (0 past Cin); two-wide loads when
+// Cin is even (c is even, so they are aligned).
+__device__ __forceinline__ float2 ds_pair(const float* __restrict__ row,
+                                          int c, int Cin) {
+  if ((Cin & 1) == 0 && c + 1 < Cin)
+    return *reinterpret_cast<const float2*>(row + c);
+  return make_float2(c < Cin ? row[c] : 0.f, c + 1 < Cin ? row[c + 1] : 0.f);
+}
+
+__device__ __forceinline__ float2 ds_pair(const bf16* __restrict__ row, int c,
+                                          int Cin) {
+  if ((Cin & 1) == 0 && c + 1 < Cin)
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(row + c));
+  return make_float2(c < Cin ? to_f32(row[c]) : 0.f,
+                     c + 1 < Cin ? to_f32(row[c + 1]) : 0.f);
+}
+
+// dx [B, H, W, Cin] f32 = the sum over the taps whose corners land on each
+// input pixel of M x dsample, from ds [B*H*W, 9, Cin] in the compute dtype;
+// every element written, each sum in one fixed order.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+dcn_bwd_dx_kernel(const T* __restrict__ ds, const float* __restrict__ offset,
+                  float* __restrict__ dx, int H, int W, int Cin, int halo,
+                  int n_xtiles) {
+  constexpr bool kBf = std::is_same<T, bf16>::value;
+  extern __shared__ __align__(16) unsigned char smem_x[];
+  float2* s_acc = reinterpret_cast<float2*>(smem_x);   // [XH][XW][XC/2]
+  DxTap* s_tap = reinterpret_cast<DxTap*>(s_acc + XH * XW * XC / 2);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int xt0 = (blockIdx.x % n_xtiles) * XW;
+  const int c = (blockIdx.x / n_xtiles) * XC + 2 * lane;   // and c + 1
+  const int yi = blockIdx.y * XH + warp;   // this warp's input row
+  const size_t img = (size_t)blockIdx.z * H * W;
+  float2* acc = s_acc + warp * XW * (XC / 2) + lane;   // acc[col * XC/2]
+  for (int col = 0; col < XW; ++col) acc[col * (XC / 2)] = make_float2(0, 0);
+
+  // the output pixels whose samples can reach the tile
+  const int ylo = max(0, (int)blockIdx.y * XH - halo - 2);
+  const int yhi = min(H - 1, (int)blockIdx.y * XH + XH - 1 + halo + 1);
+  const int xlo = max(0, xt0 - halo - 2);
+  const int xhi = min(W - 1, xt0 + XW - 1 + halo + 1);
+  const int n_e = (xhi - xlo + 1) * 9;    // entry e: column xlo + e/9, tap e%9
+  for (int y = ylo; y <= yhi; ++y) {
+    __syncthreads();   // the previous row's descriptors consumed
+    for (int e = tid; e < n_e; e += NT) {
+      const int xo = xlo + e / 9;
+      const TapGeom gm = tap_geom(offset + (img + (size_t)y * W + xo) * 18,
+                                  y, xo, e % 9, H, W, halo);
+      DxTap t;
+      int idx[4];
+      tap_corners<kBf>(gm, 0, H, W, idx, t.w);
+      t.y0 = gm.valid ? gm.y0 : kNoRow;
+      t.x0 = gm.x0;
+      s_tap[e] = t;
+    }
+    __syncthreads();
+    if (yi >= H) continue;   // warp-uniform; the loop's barriers still run
+    const T* ds_row = ds + (img + (size_t)y * W + xlo) * 9 * Cin;
+    // the entries with a corner on row yi inside the tile, in entry order;
+    // XU of them at a time: their loads first, then their sums in order
+    for (int e0 = 0; e0 < n_e; e0 += 32) {
+      bool hit = false;
+      if (e0 + lane < n_e) {
+        const DxTap& t = s_tap[e0 + lane];
+        hit = (t.y0 == yi || t.y0 + 1 == yi) && t.x0 >= xt0 - 1 &&
+              t.x0 < xt0 + XW;
+      }
+      unsigned mask = __ballot_sync(0xffffffffu, hit);
+      while (mask) {
+        int eh[XU];
+        float2 d[XU];
+#pragma unroll
+        for (int u = 0; u < XU; ++u) {
+          eh[u] = -1;
+          if (mask) {
+            eh[u] = e0 + __ffs(mask) - 1;
+            mask &= mask - 1;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < XU; ++u)
+          d[u] = eh[u] < 0 ? make_float2(0.f, 0.f)
+                           : ds_pair(ds_row + (size_t)eh[u] * Cin, c, Cin);
+#pragma unroll
+        for (int u = 0; u < XU; ++u) {
+          if (eh[u] >= 0) {   // warp-uniform
+            const DxTap& t = s_tap[eh[u]];
+            const bool bottom = t.y0 != yi;   // the row's corners are 2, 3
+#pragma unroll
+            for (int jc = 0; jc < 2; ++jc) {
+              const int col = t.x0 + jc - xt0;
+              const float m = bottom ? t.w[2 + jc] : t.w[jc];
+              if (col >= 0 && col < XW && m != 0.f) {
+                float2 a = acc[col * (XC / 2)];
+                a.x += m * d[u].x;
+                a.y += m * d[u].y;
+                acc[col * (XC / 2)] = a;
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  if (yi >= H || c >= Cin) return;
+  for (int col = 0; col < XW && xt0 + col < W; ++col) {
+    const float2 a = acc[col * (XC / 2)];
+    float* out = dx + (img + (size_t)yi * W + xt0 + col) * Cin + c;
+    if ((Cin & 1) == 0) {
+      *reinterpret_cast<float2*>(out) = a;
+    } else {
+      out[0] = a.x;
+      if (c + 1 < Cin) out[1] = a.y;
     }
   }
 }
@@ -803,12 +958,14 @@ __global__ void dcn_bwd_reduce_kernel(const float* __restrict__ part,
 
 template <typename T>
 int launch_backward(const void* x, const void* offset, const void* weight,
-                    const void* g, void* dx, void* doff, void* part, void* dw,
-                    int B, int H, int W, int Cin, int Cout, int halo,
-                    int splits, cudaStream_t stream) {
+                    const void* g, void* dx, void* doff, void* ds, void* part,
+                    void* dw, int B, int H, int W, int Cin, int Cout,
+                    int halo, int splits, cudaStream_t stream) {
   const int n_pix = B * H * W;
   const DataSmem sm = data_smem<T>(Cout);
-  if (sm.bytes > 232448 || splits < 1) return (int)cudaErrorInvalidValue;
+  const size_t dx_bytes = dx_smem_bytes(halo);
+  if (sm.bytes > 232448 || dx_bytes > 232448 || splits < 1)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       dcn_bwd_data_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sm.bytes);
@@ -816,8 +973,20 @@ int launch_backward(const void* x, const void* offset, const void* weight,
   dcn_bwd_data_kernel<T><<<(n_pix + BPB - 1) / BPB, NT, sm.bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(offset),
       static_cast<const T*>(weight), static_cast<const T*>(g),
-      static_cast<float*>(dx), static_cast<float*>(doff), n_pix, H, W, Cin,
-      Cout, halo, sm);
+      static_cast<T*>(ds), static_cast<float*>(doff), n_pix, H, W, Cin, Cout,
+      halo, sm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = cudaFuncSetAttribute(dcn_bwd_dx_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dx_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_xtiles = (W + XW - 1) / XW;
+  dim3 xgrid(n_xtiles * ((Cin + XC - 1) / XC), (H + XH - 1) / XH, B);
+  dcn_bwd_dx_kernel<T><<<xgrid, NT, dx_bytes, stream>>>(
+      static_cast<const T*>(ds), static_cast<const float*>(offset),
+      static_cast<float*>(dx), H, W, Cin, halo, n_xtiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -896,27 +1065,28 @@ extern "C" int dcn_forward_bf16(const void* x, const void* offset,
 }
 
 // Backward of the forward of the same dtype.  x, weight and g in the
-// compute dtype, offset f32; writes dx (f32, must be zeroed: the scatter
-// adds into it), doff (f32) and dw (f32, [3, 3, Cin, Cout]), with `part`
-// [splits, 9*Cin, Cout] f32 scratch for the dW partials.  Launches three
-// kernels on `stream`; returns cudaGetLastError() as an int (0 = launched).
+// compute dtype, offset f32; writes dx (f32), doff (f32) and dw (f32,
+// [3, 3, Cin, Cout]), with scratch `ds` [B*H*W, 9, Cin] in the compute
+// dtype (dsample) and `part` [splits, 9*Cin, Cout] f32 (the dW partials).
+// Launches four kernels on `stream`; returns cudaGetLastError() as an int
+// (0 = launched).
 extern "C" int dcn_backward_f32(const void* x, const void* offset,
                                 const void* weight, const void* g, void* dx,
-                                void* doff, void* part, void* dw, int B,
-                                int H, int W, int Cin, int Cout, int halo,
-                                int splits, void* stream) {
-  return launch_backward<float>(x, offset, weight, g, dx, doff, part, dw, B,
-                                H, W, Cin, Cout, halo, splits,
+                                void* doff, void* ds, void* part, void* dw,
+                                int B, int H, int W, int Cin, int Cout,
+                                int halo, int splits, void* stream) {
+  return launch_backward<float>(x, offset, weight, g, dx, doff, ds, part, dw,
+                                B, H, W, Cin, Cout, halo, splits,
                                 (cudaStream_t)stream);
 }
 
 extern "C" int dcn_backward_bf16(const void* x, const void* offset,
                                  const void* weight, const void* g, void* dx,
-                                 void* doff, void* part, void* dw, int B,
-                                 int H, int W, int Cin, int Cout, int halo,
-                                 int splits, void* stream) {
-  return launch_backward<bf16>(x, offset, weight, g, dx, doff, part, dw, B,
-                               H, W, Cin, Cout, halo, splits,
+                                 void* doff, void* ds, void* part, void* dw,
+                                 int B, int H, int W, int Cin, int Cout,
+                                 int halo, int splits, void* stream) {
+  return launch_backward<bf16>(x, offset, weight, g, dx, doff, ds, part, dw,
+                               B, H, W, Cin, Cout, halo, splits,
                                (cudaStream_t)stream);
 }
 

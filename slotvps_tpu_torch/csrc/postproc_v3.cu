@@ -3,13 +3,17 @@
 //
 // Replaces the TPU kernels of slotvps_tpu/ops/pallas/postproc_v3.py:
 // theta_v3, claim_v3, argmax_v3 (per_tile=True, and top2=True), repair_v3,
-// hist_v3 and sseg_v3.
+// hist_v3 and sseg_v3; and, through the *_hwk entries, those of
+// slotvps_tpu/ops/pallas/postproc_fused.py: theta_pallas, claim_scan_fused
+// and argmax_areas_pallas.
 // Each kernel
 // computes exactly what its plain version in
-// slotvps_tpu_torch/ops/postproc_v3.py computes.  Masks are slot-major at
-// low resolution, m [K, h, w] f32; every full-resolution map is row-major
-// [H, W] = [4h, 4w].  The [K, H, W] upsampled stack never exists: each
-// kernel rebuilds the upsampled values it needs from the low-res rows.
+// slotvps_tpu_torch/ops/postproc_v3.py (or ops/postproc_fused.py) computes.
+// Masks are at low resolution, slot-major m [K, h, w] f32 or, for the
+// postproc_fused.py functions, K-minor m [h, w, K] f32 (a Layout of strides
+// says which; no transposed copy is made); every full-resolution map is
+// row-major [H, W] = [4h, 4w].  The [K, H, W] upsampled stack never exists:
+// each kernel rebuilds the upsampled values it needs from the low-res rows.
 //
 // Bit-exact upsample.  The claim and argmax decisions compare upsampled
 // values with theta and with each other, so a kernel's upsampled value must
@@ -60,6 +64,14 @@
 //          copy, 16.8 MB of traffic, is most of its time).  Launched over
 //          all tiles with an early copy-and-return on clean ones: no
 //          compacted tile list, no extra host sync.
+// The K-minor entries run the same kernels with other strides.  theta and
+// argmax stage a block's low-res rows with neighbouring threads on
+// neighbouring slots (the slots of a pixel are contiguous), so their
+// bounds are the slot-major ones.  The claim kernel reads the 3x3 low-res
+// neighbourhood of one slot per pixel quad: in K-minor memory each read
+// uses 4 of a 32-byte sector, so a launch moves ~8x the plane's bytes
+// (~4 MB at 256x512, mostly from L2 while the masks fit in it).  argmax's
+// areas are the whole map's: one row tile of h low-res rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -106,34 +118,42 @@ __host__ __device__ inline size_t staged_smem_bytes(int K) {
          + 2 * (size_t)K;                     // two per-slot flag arrays
 }
 
+// Where element (k, row, col) of a [K, h, w]-indexed input lies:
+// m[k*sk + row*sr + col*sc].  Slot-major [K, h, w] masks: (h*w, w, 1);
+// K-minor [h, w, K] masks or NHWC [h, w, C] logits: (1, w*K, K).
+struct Layout {
+  size_t sk, sr, sc;
+};
+
+__host__ __device__ inline Layout slot_major(int K, int h, int w) {
+  return Layout{(size_t)h * w, (size_t)w, 1};
+}
+
+__host__ __device__ inline Layout k_minor(int K, int h, int w) {
+  return Layout{1, (size_t)w * K, (size_t)K};
+}
+
 // R[(k*4 + pr)*SC + c] = row phase pr of low-res row i at local column c,
 // where c = 0 is column j0-1 and c = SW+1 is column j0+SW (both clamped).
-// Element (k, row, col) of m lies at m[k*sk + row*sr + col*sc]: slot-major
-// [K, h, w] masks (sk = h*w, sr = w, sc = 1) or NHWC [h, w, K] logits
-// (sk = 1, sr = w*K, sc = K).
+// Neighbouring threads read neighbouring addresses: along the columns of a
+// slot-major input, along the slots of a K-minor one.
 __device__ void stage_rows(const float* __restrict__ m, int K, int h, int w,
-                           size_t sk, size_t sr, size_t sc, int i, int j0,
-                           float* R) {
+                           Layout L, int i, int j0, float* R) {
   const int ip = max(i - 1, 0);
   const int in = min(i + 1, h - 1);
+  const bool slots_inner = L.sk == 1;
   for (int e = threadIdx.x; e < K * SC; e += blockDim.x) {
-    const int k = e / SC;
-    const int c = e % SC;
+    const int k = slots_inner ? e % K : e / SC;
+    const int c = slots_inner ? e / K : e % SC;
     const int jj = min(max(j0 - 1 + c, 0), w - 1);
-    const float* mk = m + (size_t)k * sk + (size_t)jj * sc;
-    const float prev = mk[(size_t)ip * sr];
-    const float cent = mk[(size_t)i * sr];
-    const float next = mk[(size_t)in * sr];
+    const float* mk = m + (size_t)k * L.sk + (size_t)jj * L.sc;
+    const float prev = mk[(size_t)ip * L.sr];
+    const float cent = mk[(size_t)i * L.sr];
+    const float next = mk[(size_t)in * L.sr];
     float* r = R + (size_t)k * 4 * SC + c;
 #pragma unroll
     for (int p = 0; p < 4; ++p) r[p * SC] = lerp_phase(p, prev, cent, next);
   }
-}
-
-__device__ __forceinline__ void stage_rows(const float* __restrict__ m,
-                                           int K, int h, int w, int i, int j0,
-                                           float* R) {
-  stage_rows(m, K, h, w, (size_t)h * w, (size_t)w, 1, i, j0, R);
 }
 
 // Per-thread column phase of the staged kernels: its weights and which
@@ -155,8 +175,9 @@ __device__ __forceinline__ float staged_value(const float* R, int k, int pr,
 }
 
 __global__ void __launch_bounds__(NT)
-theta_kernel(const float* __restrict__ m, const uint8_t* __restrict__ valid,
-             float log_thr, float* __restrict__ out, int K, int h, int w) {
+theta_kernel(const float* __restrict__ m, Layout L,
+             const uint8_t* __restrict__ valid, float log_thr,
+             float* __restrict__ out, int K, int h, int w) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* R = reinterpret_cast<float*>(smem);
   uint8_t* s_valid =
@@ -164,7 +185,7 @@ theta_kernel(const float* __restrict__ m, const uint8_t* __restrict__ valid,
   const int i = blockIdx.y;
   const int j0 = blockIdx.x * SW;
   for (int k = threadIdx.x; k < K; k += blockDim.x) s_valid[k] = valid[k];
-  stage_rows(m, K, h, w, i, j0, R);
+  stage_rows(m, K, h, w, L, i, j0, R);
   __syncthreads();
 
   const int pr = threadIdx.x / FW;
@@ -196,7 +217,8 @@ theta_kernel(const float* __restrict__ m, const uint8_t* __restrict__ valid,
 // iteration: clean tiles copy m1 (and, from one block per tile, their area
 // row) and return.
 __global__ void __launch_bounds__(NT)
-argmax_kernel(const float* __restrict__ m, const int8_t* __restrict__ owner,
+argmax_kernel(const float* __restrict__ m, Layout L,
+              const int8_t* __restrict__ owner,
               const uint8_t* __restrict__ kept,
               const uint8_t* __restrict__ is_thing,
               const uint8_t* __restrict__ dirty,
@@ -235,7 +257,7 @@ argmax_kernel(const float* __restrict__ m, const int8_t* __restrict__ owner,
     s_kept[k] = kept[k];
     s_thing[k] = is_thing[k];
   }
-  stage_rows(m, K, h, w, i, j0, R);
+  stage_rows(m, K, h, w, L, i, j0, R);
   __syncthreads();
 
   int id = -1;
@@ -328,7 +350,7 @@ sseg_kernel(const float* __restrict__ x, int64_t* __restrict__ out, int C,
   float* R = reinterpret_cast<float*>(smem);
   const int i = blockIdx.y;
   const int j0 = blockIdx.x * SW;
-  stage_rows(x, C, h, w, 1, (size_t)w * C, (size_t)C, i, j0, R);
+  stage_rows(x, C, h, w, k_minor(C, h, w), i, j0, R);
   __syncthreads();
 
   const int pr = threadIdx.x / FW;
@@ -348,10 +370,11 @@ sseg_kernel(const float* __restrict__ x, int64_t* __restrict__ out, int C,
   out[(size_t)(4 * i + pr) * (4 * (size_t)w) + 4 * j0 + xl] = id;
 }
 
-// Upsampled values of slot mk at the 4 full-res pixels (Y, 4j .. 4j+3).
+// Upsampled values of the slot whose element (row, col) lies at
+// mk[row*L.sr + col*L.sc] at the 4 full-res pixels (Y, 4j .. 4j+3).
 __device__ __forceinline__ void upsample_quad(const float* __restrict__ mk,
-                                              int h, int w, int Y, int j,
-                                              float v[4]) {
+                                              Layout L, int h, int w, int Y,
+                                              int j, float v[4]) {
   const int i = Y >> 2;
   const int pr = Y & 3;
   const int ip = max(i - 1, 0);
@@ -359,9 +382,9 @@ __device__ __forceinline__ void upsample_quad(const float* __restrict__ mk,
   float r[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const int jj = min(max(j - 1 + c, 0), w - 1);
-    r[c] = lerp_phase(pr, mk[(size_t)ip * w + jj], mk[(size_t)i * w + jj],
-                      mk[(size_t)in * w + jj]);
+    const float* col = mk + (size_t)min(max(j - 1 + c, 0), w - 1) * L.sc;
+    r[c] = lerp_phase(pr, col[(size_t)ip * L.sr], col[(size_t)i * L.sr],
+                      col[(size_t)in * L.sr]);
   }
 #pragma unroll
   for (int pc = 0; pc < 4; ++pc) v[pc] = lerp_phase(pc, r[0], r[1], r[2]);
@@ -385,7 +408,8 @@ __device__ __forceinline__ int block_sum(int x, int* s_red) {
 // ovl for it; its last block decides keep[slot] and sets `pending`.  The
 // launch with slot = -1 only applies the pending claim.
 __global__ void __launch_bounds__(CT)
-claim_kernel(const float* __restrict__ m, const float* __restrict__ theta,
+claim_kernel(const float* __restrict__ m, Layout L,
+             const float* __restrict__ theta,
              const int32_t* __restrict__ labels,
              const uint8_t* __restrict__ flags, float frac, int K, int h,
              int w, int slot, int8_t* __restrict__ owner,
@@ -416,7 +440,7 @@ claim_kernel(const float* __restrict__ m, const float* __restrict__ theta,
     bool changed = false;
     float v[4];
     if (p >= 0) {
-      upsample_quad(m + (size_t)p * h * w, h, w, Y, j, v);
+      upsample_quad(m + (size_t)p * L.sk, L, h, w, Y, j, v);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         if (o[c] < 0 && v[c] >= thv[c]) {
@@ -426,7 +450,7 @@ claim_kernel(const float* __restrict__ m, const float* __restrict__ theta,
     }
     if (slot >= 0) {
       const int cls = s_labels[slot];
-      upsample_quad(m + (size_t)slot * h * w, h, w, Y, j, v);
+      upsample_quad(m + (size_t)slot * L.sk, L, h, w, Y, j, v);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         if (v[c] >= thv[c]) {
@@ -466,32 +490,27 @@ cudaError_t set_smem(const void* fn, int K) {
                               (int)staged_smem_bytes(K));
 }
 
-}  // namespace
-
-// Each entry point launches on `stream` and returns cudaGetLastError() as an
-// int (0 = launched).  The Python wrapper checks shapes, types, contiguity
-// and K <= 127, and allocates (and zeroes, where said) every output.
-
-// theta [4h, 4w] f32.
-extern "C" int pp_theta(const void* m, const void* valid, float log_thr,
-                        void* out, int K, int h, int w, void* stream) {
+int launch_theta(const void* m, Layout L, const void* valid, float log_thr,
+                 void* out, int K, int h, int w, void* stream) {
   cudaError_t err = set_smem((const void*)theta_kernel, K);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w + SW - 1) / SW, h);
   theta_kernel<<<grid, NT, staged_smem_bytes(K), (cudaStream_t)stream>>>(
-      static_cast<const float*>(m), static_cast<const uint8_t*>(valid),
+      static_cast<const float*>(m), L, static_cast<const uint8_t*>(valid),
       log_thr, static_cast<float*>(out), K, h, w);
   return (int)cudaGetLastError();
 }
 
-// The claim loop over slots lo .. hi-1 (every valid thing slot must lie in
-// that range; others are skipped on the device), then one launch that
-// applies the last claim: hi - lo + 1 launches.  Initializes owner to -1,
-// keep to 0 and scratch (3K + 1 int32) to 0 on the stream.
-extern "C" int pp_claim(const void* m, const void* theta, const void* labels,
-                        const void* flags, float frac, int K, int h, int w,
-                        int lo, int hi, void* owner, void* keep,
-                        void* scratch, void* stream) {
+// The claim loop: one launch per slot of the sequence (slots[0 .. n-1] if
+// `slots` is not null, else lo .. lo+n-1), in that order, then one launch
+// that applies the last claim: n + 1 launches.  Every valid thing slot must
+// be in the sequence; other slots in it are skipped on the device.
+// Initializes owner to -1, keep to 0 and scratch (3K + 1 int32) to 0 on the
+// stream.
+int claim_loop(const void* m, Layout L, const void* theta, const void* labels,
+               const void* flags, float frac, int K, int h, int w,
+               const int* slots, int lo, int n, void* owner, void* keep,
+               void* scratch, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(owner, 0xff, (size_t)16 * h * w, s);
   if (err == cudaSuccess) err = cudaMemsetAsync(keep, 0, (size_t)K, s);
@@ -500,17 +519,76 @@ extern "C" int pp_claim(const void* m, const void* theta, const void* labels,
                           s);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)(((size_t)4 * h * w + CT - 1) / CT);
-  for (int slot = lo; slot <= hi; ++slot) {
+  for (int t = 0; t <= n; ++t) {
+    const int slot = t == n ? -1 : (slots != nullptr ? slots[t] : lo + t);
     claim_kernel<<<blocks, CT, 0, s>>>(
-        static_cast<const float*>(m), static_cast<const float*>(theta),
+        static_cast<const float*>(m), L, static_cast<const float*>(theta),
         static_cast<const int32_t*>(labels),
-        static_cast<const uint8_t*>(flags), frac, K, h, w,
-        slot < hi ? slot : -1, static_cast<int8_t*>(owner),
-        static_cast<uint8_t*>(keep), static_cast<int32_t*>(scratch));
+        static_cast<const uint8_t*>(flags), frac, K, h, w, slot,
+        static_cast<int8_t*>(owner), static_cast<uint8_t*>(keep),
+        static_cast<int32_t*>(scratch));
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+int launch_argmax(const void* m, Layout L, const void* owner,
+                  const void* kept, const void* is_thing, void* m_id,
+                  void* m2_id, void* areas, int K, int h, int w, int hb,
+                  void* stream) {
+  cudaError_t err = set_smem((const void*)argmax_kernel, K);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((w + SW - 1) / SW, h);
+  argmax_kernel<<<grid, NT, staged_smem_bytes(K), (cudaStream_t)stream>>>(
+      static_cast<const float*>(m), L, static_cast<const int8_t*>(owner),
+      static_cast<const uint8_t*>(kept), static_cast<const uint8_t*>(is_thing),
+      nullptr, nullptr, nullptr, static_cast<int32_t*>(m_id),
+      static_cast<int32_t*>(m2_id), static_cast<int32_t*>(areas), K, h, w,
+      hb);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Each entry point launches on `stream` and returns cudaGetLastError() as an
+// int (0 = launched).  The Python wrapper checks shapes, types, contiguity
+// and K <= 127, and allocates (and zeroes, where said) every output.  The
+// *_hwk entries take K-minor masks m [h, w, K] (postproc_fused.py's
+// layout), the others slot-major m [K, h, w].
+
+// theta [4h, 4w] f32.
+extern "C" int pp_theta(const void* m, const void* valid, float log_thr,
+                        void* out, int K, int h, int w, void* stream) {
+  return launch_theta(m, slot_major(K, h, w), valid, log_thr, out, K, h, w,
+                      stream);
+}
+
+extern "C" int pp_theta_hwk(const void* m, const void* valid, float log_thr,
+                            void* out, int K, int h, int w, void* stream) {
+  return launch_theta(m, k_minor(K, h, w), valid, log_thr, out, K, h, w,
+                      stream);
+}
+
+// The claim loop over slots lo .. hi-1 (every valid thing slot must lie in
+// that range): hi - lo + 1 launches.
+extern "C" int pp_claim(const void* m, const void* theta, const void* labels,
+                        const void* flags, float frac, int K, int h, int w,
+                        int lo, int hi, void* owner, void* keep,
+                        void* scratch, void* stream) {
+  return claim_loop(m, slot_major(K, h, w), theta, labels, flags, frac, K, h,
+                    w, nullptr, lo, hi - lo, owner, keep, scratch, stream);
+}
+
+// The claim loop over the n slots of the host array `slots` (the valid
+// thing slots, ascending): n + 1 launches.
+extern "C" int pp_claim_hwk(const void* m, const void* theta,
+                            const void* labels, const void* flags, float frac,
+                            int K, int h, int w, const int* slots, int n,
+                            void* owner, void* keep, void* scratch,
+                            void* stream) {
+  return claim_loop(m, k_minor(K, h, w), theta, labels, flags, frac, K, h, w,
+                    slots, 0, n, owner, keep, scratch, stream);
 }
 
 // m_id [4h, 4w] int32, areas [T, K] int32 (zeroed by the caller) and, when
@@ -519,16 +597,18 @@ extern "C" int pp_argmax(const void* m, const void* owner, const void* kept,
                          const void* is_thing, void* m_id, void* m2_id,
                          void* areas, int K, int h, int w, int hb,
                          void* stream) {
-  cudaError_t err = set_smem((const void*)argmax_kernel, K);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((w + SW - 1) / SW, h);
-  argmax_kernel<<<grid, NT, staged_smem_bytes(K), (cudaStream_t)stream>>>(
-      static_cast<const float*>(m), static_cast<const int8_t*>(owner),
-      static_cast<const uint8_t*>(kept), static_cast<const uint8_t*>(is_thing),
-      nullptr, nullptr, nullptr, static_cast<int32_t*>(m_id),
-      static_cast<int32_t*>(m2_id), static_cast<int32_t*>(areas), K, h, w,
-      hb);
-  return (int)cudaGetLastError();
+  return launch_argmax(m, slot_major(K, h, w), owner, kept, is_thing, m_id,
+                       m2_id, areas, K, h, w, hb, stream);
+}
+
+// m_id [4h, 4w] int32 and the whole map's areas [K] int32 (zeroed by the
+// caller): one row tile of h low-res rows.
+extern "C" int pp_argmax_hwk(const void* m, const void* owner,
+                             const void* kept, const void* is_thing,
+                             void* m_id, void* areas, int K, int h, int w,
+                             void* stream) {
+  return launch_argmax(m, k_minor(K, h, w), owner, kept, is_thing, m_id,
+                       nullptr, areas, K, h, w, h, stream);
 }
 
 // One small-area-filter iteration; areas [T, K] int32 zeroed by the caller.
@@ -541,10 +621,11 @@ extern "C" int pp_repair(const void* m, const void* owner, const void* m1,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w + SW - 1) / SW, h);
   argmax_kernel<<<grid, NT, staged_smem_bytes(K), (cudaStream_t)stream>>>(
-      static_cast<const float*>(m), static_cast<const int8_t*>(owner),
-      static_cast<const uint8_t*>(kept), static_cast<const uint8_t*>(is_thing),
-      static_cast<const uint8_t*>(dirty), static_cast<const int32_t*>(m1),
-      static_cast<const int32_t*>(areas_prev), static_cast<int32_t*>(m_id),
+      static_cast<const float*>(m), slot_major(K, h, w),
+      static_cast<const int8_t*>(owner), static_cast<const uint8_t*>(kept),
+      static_cast<const uint8_t*>(is_thing), static_cast<const uint8_t*>(dirty),
+      static_cast<const int32_t*>(m1), static_cast<const int32_t*>(areas_prev),
+      static_cast<int32_t*>(m_id),
       nullptr, static_cast<int32_t*>(areas), K, h, w, hb);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 """Host-side prefetching loader.
 
 The reference uses torch DataLoader worker processes
-(reference mmdet/datasets/loader/build_loader.py:18); on TPU the equivalent
-is decode-ahead worker threads feeding a bounded queue so the chip never
-stalls on I/O (double-buffered host->HBM pipeline, BASELINE.json config 4).
+(reference mmdet/datasets/loader/build_loader.py:18); here decode-ahead
+worker threads feed a bounded queue so that the card never waits on image
+decoding.
 
 Ordering with backpressure: worker ``t`` decodes indices ``t, t+T, t+2T...``
 into its own bounded queue; the consumer round-robins, so items arrive in

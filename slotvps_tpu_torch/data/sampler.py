@@ -7,10 +7,10 @@ mmdet/datasets/custom.py:122-132): images are grouped by aspect ratio
 (flag 1 when width/height > 1), each batch is drawn from ONE group, and
 groups are padded to a whole number of batches by repeating their head.
 Mixing portrait and landscape frames in one batch forces the padded
-static shape to cover both orientations — on TPU that wastes MXU cycles
-on pad pixels, so same-group batching matters wherever the dataset mixes
-aspect ratios (Mapillary; Cityscapes is uniformly 1024x2048 and
-degenerates to a plain shuffle).
+shape to cover both orientations, and the card then computes on pad
+pixels, so same-group batching matters wherever the dataset mixes aspect
+ratios (Mapillary; Cityscapes is uniformly 1024x2048 and degenerates to a
+plain shuffle).
 
 Functional numpy design instead of torch Sampler objects: one call
 returns the epoch's full index order, already deterministic in

@@ -219,13 +219,13 @@ class BatchedVideoPipeline(_Pipeline):
     """Lockstep batched multi-video inference (the JAX package's
     ``BatchedVideoPipeline``, the configuration its bench measures).
 
-    Frame t of ``batch`` videos goes through ``extract_features`` and
-    ``decode_pair`` as one batch; the postprocess runs per video (as the
-    JAX package loops over the batch), and each video keeps its own
-    :class:`TrackState` and goes through :func:`finish_frame`, so each
-    video's results are those of the streaming :class:`InferencePipeline`
-    on that video wherever the batched backbone and decoder give the same
-    floats as batch 1.
+    ``extract_features`` takes frame t of the ``batch`` videos one frame at
+    a time (:meth:`_extract`); ``decode_pair`` takes them as one batch in
+    bf16 and one frame at a time in f32 (:meth:`_decode_post`); the
+    postprocess runs per video (as the JAX package loops over the batch),
+    and each video keeps its own :class:`TrackState` and goes through
+    :func:`finish_frame`, so each video's results are those of the
+    streaming :class:`InferencePipeline` on that video, bit for bit.
 
     Order of work: the upload of frame t+1 (a pinned host buffer, copied
     with ``non_blocking=True``) is issued before step t's results are read
@@ -260,6 +260,39 @@ class BatchedVideoPipeline(_Pipeline):
         self._pinned: List[Optional[torch.Tensor]] = [None, None]
         self._copied: List[Optional[torch.cuda.Event]] = [None, None]
         self._uploads = 0
+
+    def _extract(self, img) -> FrameFeatures:
+        """Features of frame t of every video [B, H, W, 3], taken one frame
+        at a time and concatenated: at batch B the backbone's cuDNN
+        convolutions pick other algorithms than at batch 1 and give a frame
+        other floats (in bf16 on most elements), which the calibrated
+        decode turns into other kept slots; at batch 1 each frame gets the
+        streaming path's features."""
+        extract = super()._extract
+        feats = [extract(img[i:i + 1]) for i in range(img.shape[0])]
+        return FrameFeatures(
+            tuple(torch.cat(level)
+                  for level in zip(*(f.feat_trans for f in feats))),
+            torch.cat([f.fcn_output for f in feats]))
+
+    def _decode_post(self, ref_feats, cur_feats) -> List[PostprocResult]:
+        """decode_pair and each video's postprocess.  In bf16 the decoder
+        gives each frame at batch B the floats of batch 1 and runs as one
+        batch; in f32 it does not (cuBLAS picks other f32 GEMM kernels when
+        the slot projections' rows grow from K to B*K, and the decoder's
+        outputs move in their last bits), so it takes one frame at a
+        time."""
+        if self.config.model.compute_dtype != "float32":
+            return super()._decode_post(ref_feats, cur_feats)
+
+        def frame(f, i):
+            return FrameFeatures(tuple(level[i:i + 1]
+                                       for level in f.feat_trans),
+                                 f.fcn_output[i:i + 1])
+
+        decode = super()._decode_post
+        return [post for i in range(cur_feats.fcn_output.shape[0])
+                for post in decode(frame(ref_feats, i), frame(cur_feats, i))]
 
     def _upload(self, frames: Sequence[np.ndarray]) -> torch.Tensor:
         """Frame t of every video, [B, H, W, 3], on the device.  On the

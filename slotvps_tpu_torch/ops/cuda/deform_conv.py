@@ -5,7 +5,8 @@
 four entry points, two per compute dtype: ``dcn_forward_f32`` (f32 FMA),
 ``dcn_forward_bf16`` (bf16 tensor cores, f32 accumulation, the bf16 Pallas
 kernel's rounding points, an f32 or a bf16 output), and the backward
-``dcn_backward_f32`` / ``dcn_backward_bf16`` (dx, doff and dW).
+``dcn_backward_f32`` / ``dcn_backward_bf16`` (dx, doff and dW, each summed
+in a fixed order: the same on every run).
 
 :func:`deform_conv2d_hopper` is the differentiable DCN of the semantic
 tower, the counterpart of the JAX package's ``deform_conv2d_pallas`` with
@@ -38,7 +39,7 @@ def _declare(lib: ctypes.CDLL):
     lib.dcn_forward_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.dcn_forward_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     for fn in (lib.dcn_backward_f32, lib.dcn_backward_bf16):
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     for fn in (lib.dcn_forward_f32, lib.dcn_forward_bf16,
                lib.dcn_backward_f32, lib.dcn_backward_bf16):
         fn.restype = i
@@ -142,9 +143,11 @@ def dcn_backward_hopper(x: torch.Tensor, offset: torch.Tensor,
 
     Returns (dx [B, H, W, Cin] in ``x.dtype``, doff [B, H, W, 18] f32,
     dW [3, 3, Cin, Cout] f32), computed in ``compute_dtype`` at the Pallas
-    backward kernel's rounding points.  Each kernel launch (one call: the
-    data, weight and reduction passes) adds one to
-    ``dcn_backward_hopper.launches[dtype name]``."""
+    backward kernel's rounding points, each the same on every run.  On the
+    card it takes a scratch buffer of dsample, [B*H*W, 9, Cin] in
+    ``compute_dtype`` (0.74 GB in bf16 at 2 x 200 x 400 pixels and Cin
+    256).  Each kernel launch (one call: the data, dx, weight and reduction
+    passes) adds one to ``dcn_backward_hopper.launches[dtype name]``."""
     if all(t.device.type == "cpu" for t in (x, offset, weight, g)):
         return deform_conv2d_backward(x, offset, weight, g, halo,
                                       compute_dtype)
@@ -156,8 +159,9 @@ def dcn_backward_hopper(x: torch.Tensor, offset: torch.Tensor,
     gc = g.to(compute_dtype).contiguous()
     off = offset.float().contiguous()
     splits = _dw_splits(b * h * w, c_in, c_out)
-    dx = torch.zeros((b, h, w, c_in), dtype=torch.float32, device=dev)
+    dx = torch.empty((b, h, w, c_in), dtype=torch.float32, device=dev)
     doff = torch.empty((b, h, w, 18), dtype=torch.float32, device=dev)
+    ds = torch.empty((b * h * w * 9 * c_in,), dtype=compute_dtype, device=dev)
     part = torch.empty((splits, 9 * c_in, c_out), dtype=torch.float32,
                        device=dev)
     dw = torch.empty((3, 3, c_in, c_out), dtype=torch.float32, device=dev)
@@ -168,7 +172,8 @@ def dcn_backward_hopper(x: torch.Tensor, offset: torch.Tensor,
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             xc.data_ptr(), off.data_ptr(), wc.data_ptr(), gc.data_ptr(),
-            dx.data_ptr(), doff.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            dx.data_ptr(), doff.data_ptr(), ds.data_ptr(), part.data_ptr(),
+            dw.data_ptr(),
             b, h, w, c_in, c_out, int(halo), splits, stream)
     _raise_on(lib, entry, rc)
     dcn_backward_hopper.launches[_KEY[compute_dtype]] += 1

@@ -7,6 +7,9 @@ its plain version in :mod:`slotvps_tpu_torch.ops.postproc_v3`:
 * :func:`theta_hopper`, :func:`claim_hopper`, :func:`argmax_hopper`,
   :func:`repair_hopper`, :func:`hist_hopper`, :func:`sseg_hopper`.
 
+The same library's K-minor entries have their wrappers in
+:mod:`slotvps_tpu_torch.ops.cuda.postproc_fused`.
+
 On CPU tensors a wrapper runs the plain version; on CUDA tensors it
 launches its kernel or raises — there is no fallback.  Each kernel launch
 adds one to the wrapper's ``launches`` count (the claim loop is one launch
@@ -32,13 +35,18 @@ MAX_SLOTS = 127   # int8 owner maps
 def _declare(lib: ctypes.CDLL):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pp_theta.argtypes = [p, p, f, p, i, i, i, p]
+    lib.pp_theta_hwk.argtypes = [p, p, f, p, i, i, i, p]
     lib.pp_claim.argtypes = [p, p, p, p, f, i, i, i, i, i, p, p, p, p]
+    lib.pp_claim_hwk.argtypes = [p, p, p, p, f, i, i, i,
+                                 ctypes.POINTER(i), i, p, p, p, p]
     lib.pp_argmax.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.pp_argmax_hwk.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.pp_hist.argtypes = [p, ctypes.c_longlong, i, p, p]
     lib.pp_repair.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.pp_sseg.argtypes = [p, p, i, i, i, p]
-    for fn in (lib.pp_theta, lib.pp_claim, lib.pp_argmax, lib.pp_repair,
-               lib.pp_hist, lib.pp_sseg):
+    for fn in (lib.pp_theta, lib.pp_theta_hwk, lib.pp_claim,
+               lib.pp_claim_hwk, lib.pp_argmax, lib.pp_argmax_hwk,
+               lib.pp_repair, lib.pp_hist, lib.pp_sseg):
         fn.restype = i
     lib.pp_error_string.argtypes = [i]
     lib.pp_error_string.restype = ctypes.c_char_p
@@ -47,26 +55,27 @@ def _declare(lib: ctypes.CDLL):
 LIBRARY = KernelLibrary("postproc_v3", _declare)
 
 
-def _on_card(name: str, m_klow: torch.Tensor, vecs=(), **maps) -> bool:
+def _on_card(name: str, m: torch.Tensor, vecs=(), k_minor: bool = False,
+             **maps) -> bool:
     """False when every tensor lies on the CPU (run the plain version);
     True when all lie on one CUDA device and fit the kernel; else raises.
 
-    ``maps`` are the full-resolution maps, given as name=(tensor, dtype);
-    the per-slot vectors ``vecs`` are checked further by
-    :func:`_slot_vec`."""
-    tensors = [m_klow, *vecs] + [t for t, _ in maps.values()]
+    ``m`` holds the low-res masks, slot-major [K, h, w] or, with
+    ``k_minor``, [h, w, K]; ``maps`` are the full-resolution maps, given as
+    name=(tensor, dtype); the per-slot vectors ``vecs`` are checked further
+    by :func:`_slot_vec`."""
+    tensors = [m, *vecs] + [t for t, _ in maps.values()]
     if all(t.device.type == "cpu" for t in tensors):
         return False
-    dev = m_klow.device
+    dev = m.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: every tensor must lie on one CUDA device "
                          "(or all on the CPU)")
-    if m_klow.ndim != 3 or m_klow.dtype != torch.float32 \
-            or not m_klow.is_contiguous():
-        raise TypeError(f"{name}: m_klow must be a contiguous float32 "
-                        f"[K, h, w] tensor, got {m_klow.dtype} "
-                        f"{tuple(m_klow.shape)}")
-    k, h, w = m_klow.shape
+    dims = "[h, w, K]" if k_minor else "[K, h, w]"
+    if m.ndim != 3 or m.dtype != torch.float32 or not m.is_contiguous():
+        raise TypeError(f"{name}: the masks must be a contiguous float32 "
+                        f"{dims} tensor, got {m.dtype} {tuple(m.shape)}")
+    h, w, k = m.shape if k_minor else (*m.shape[1:], m.shape[0])
     if not 1 <= k <= MAX_SLOTS:
         raise ValueError(f"{name}: K={k} slots; the kernels take 1..."
                          f"{MAX_SLOTS} (int8 owner maps)")

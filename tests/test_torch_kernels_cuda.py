@@ -2,7 +2,9 @@
 the DCN kernel in f32 and bf16 (forward, the bf16 forward's f32 output,
 the backward and its autograd Function), the five fused-postprocess
 kernels (theta, claim, argmax with and without its runner-up map, repair,
-hist, sseg), the claim-scan kernel and the slot-attention kernel.
+hist, sseg), their K-minor entries (theta, claim and argmax-areas on
+[h, w, K] masks), the claim-scan kernel and the slot-attention kernel;
+and BatchedVideoPipeline against streaming on the bf16 kernel path.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the tests' conftest helpers, so it also runs on a
@@ -13,20 +15,22 @@ machine without JAX:
 Tolerances: DCN max |kernel - plain| <= 1e-4 * max |plain| in f32 (sums
 taken in another order) and <= 1e-2 * max |plain| in bf16 (the same three
 bf16 rounding points; a sum in another order moves a rounded value by one
-bf16 ulp now and then), for each of the backward's dx, doff and dW too (dx
-is summed with f32 atomics, in an order that varies from run to run; dW is
-summed in a fixed order and must be equal from run to run); slot attention
+bf16 ulp now and then), for each of the backward's dx, doff and dW too
+(each summed in a fixed order: equal from run to run); slot attention
 <= 1e-4 * max |plain| (f32 sums in another order); theta within 1e-5 *
 max(1, |theta|) (the sum of exp in another order); the integer outputs of
-claim, argmax (top2 too), repair, hist, sseg and the claim scan are
-bit-identical, given identical inputs."""
+claim, argmax (top2 too), repair, hist, sseg, the K-minor entries and the
+claim scan are bit-identical, given identical inputs; the batched
+pipeline's results equal streaming's bit for bit."""
 
 import pytest
 import torch
 
+from slotvps_tpu_torch.ops import postproc_fused as plain_fused
 from slotvps_tpu_torch.ops import postproc_v3 as plain
 from slotvps_tpu_torch.ops.claim_scan import claim_scan
 from slotvps_tpu_torch.ops.cuda.claim_scan import claim_scan_hopper
+from slotvps_tpu_torch.ops.cuda import postproc_fused as hfused
 from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
 from slotvps_tpu_torch.ops.cuda.deform_conv import (dcn_backward_hopper,
                                                     deform_conv2d_hopper)
@@ -143,8 +147,24 @@ def test_backward_kernel_matches_plain(cuda_device, dtype, shape):
         assert a.dtype == torch.float32 and a.shape == r.shape, name
         err = float((a - r).abs().max())
         assert err <= rtol * float(r.abs().max()), (name, err)
-    assert torch.equal(out[2], again[2])     # dW: a fixed order of sums
-    assert torch.equal(out[1], again[1])
+    for a, b in zip(out, again):             # a fixed order of sums
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_dx_is_the_same_on_every_run(cuda_device, dtype):
+    """P2 of the 800x1600 training crop (B=2, 256 -> 256, halo 2), the
+    training step's largest shape: dx, doff and dW equal in two runs."""
+    x, off, wt = _case(cuda_device, 2, 200, 400, 256, 256, 2)
+    g = torch.randn((2, 200, 400, 256), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2))
+    out = dcn_backward_hopper(x, off, wt, g, 2, dtype)
+    again = dcn_backward_hopper(x, off, wt, g, 2, dtype)
+    torch.cuda.synchronize()
+    assert float(out[0].abs().max()) > 0
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -333,6 +353,70 @@ def test_postproc_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         slot_attention_hopper(q[:, :8].float(), q.float(), q.float())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 16, 24), (100, 40, 70),
+                                   (100, 256, 512)])
+def test_k_minor_postproc_kernels_match_plain(cuda_device, shape):
+    """theta, claim and argmax-areas on K-minor masks against their plain
+    versions (and the v3 kernels on the same masks slot-major): the claim
+    launches once per valid thing slot plus once."""
+    k, h, w = shape
+    m_khw, labels, valid, is_thing = _postproc_case(cuda_device, k, h, w)
+    m = m_khw.permute(1, 2, 0).contiguous()
+    fns = (hfused.theta_fused_hopper, hfused.claim_scan_fused_hopper,
+           hfused.argmax_areas_hopper)
+    before = [f.launches for f in fns]
+    th = hfused.theta_fused_hopper(m, valid, 0.4)
+    th_ref = plain_fused.theta_fused(m, valid, 0.4)
+    th3 = hv3.theta_hopper(m_khw, valid, 0.4)
+    torch.cuda.synchronize()
+    assert float(((th - th_ref).abs()
+                  / th_ref.abs().clamp_min(1.0)).max()) <= 1e-5
+    assert torch.equal(th, th3)
+    keep, owner = hfused.claim_scan_fused_hopper(m, th_ref, labels, is_thing,
+                                                 valid, 0.03)
+    keep_ref, owner_ref = plain_fused.claim_scan_fused(
+        m, th_ref, labels, is_thing, valid, 0.03)
+    assert torch.equal(keep, keep_ref) and torch.equal(owner, owner_ref)
+    assert 0 < int(keep.sum()) < int((valid & is_thing).sum())
+    kept = torch.where(is_thing, keep_ref, valid)
+    m_id, areas = hfused.argmax_areas_hopper(m, owner_ref, kept, is_thing)
+    m_ref, areas_ref = plain_fused.argmax_areas(m, owner_ref, kept,
+                                                is_thing)
+    m3, areas_t = hv3.argmax_hopper(m_khw, owner_ref, kept, is_thing)
+    torch.cuda.synchronize()
+    assert torch.equal(m_id, m_ref) and torch.equal(areas, areas_ref)
+    assert torch.equal(m_id, m3) and torch.equal(areas, areas_t.sum(0).int())
+    n_things = int((valid & is_thing).sum())
+    assert [f.launches - b for f, b in zip(fns, before)] == [
+        1, n_things + 1, 1]
+
+
+@pytest.mark.cuda
+def test_k_minor_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    m_khw, labels, valid, is_thing = _postproc_case(cuda_device, 24, 16, 24)
+    m = m_khw.permute(1, 2, 0).contiguous()
+    th = plain_fused.theta_fused(m, valid, 0.4)
+    with pytest.raises(TypeError, match=r"\[h, w, K\]"):
+        hfused.theta_fused_hopper(m.double(), valid, 0.4)
+    with pytest.raises(TypeError, match="contiguous"):
+        hfused.theta_fused_hopper(m_khw.permute(1, 2, 0), valid, 0.4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        hfused.claim_scan_fused_hopper(m, th, labels.cpu(), is_thing, valid,
+                                       0.03)
+    with pytest.raises(ValueError, match="int8 owner"):
+        big = torch.zeros((16, 24, 128), device=cuda_device)
+        hfused.theta_fused_hopper(big, torch.ones(128, dtype=torch.bool,
+                                                  device=cuda_device), 0.4)
+    with pytest.raises(ValueError, match="theta"):
+        hfused.claim_scan_fused_hopper(m, th[:, :-1], labels, is_thing,
+                                       valid, 0.03)
+    with pytest.raises(ValueError, match="owner"):
+        hfused.argmax_areas_hopper(m, th, valid, is_thing)
+    with pytest.raises(ValueError, match="valid"):
+        hfused.theta_fused_hopper(m, valid[:-1], 0.4)
+
+
 def _planes(dev, b, k, h, w, seed=0):
     """Binarized [B, K, H, W] planes of the postprocess case (up >= theta)
     with its slot vectors, one set per video."""
@@ -448,3 +532,60 @@ def test_claim_scan_and_hist_wrappers_reject_what_they_do_not_take(
         hv3.hist_hopper(m_id.long(), 4)
     with pytest.raises(TypeError, match="aligned"):
         hv3.hist_hopper(m_id.flatten()[1:], 4)
+
+
+@pytest.mark.cuda
+def test_batched_pipeline_equals_streaming_bf16(cuda_device):
+    """BatchedVideoPipeline (B = 2) on the bf16 kernel path of the tuned
+    r50_fpn_slotvps (bf16 DCN, slot attention, fused postprocess and sseg)
+    at 128x256, seeded weights calibrated so that things are kept: each
+    video's maps, classes, scores and ids equal its streaming run's bit for
+    bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from slotvps_tpu_torch.cli.test_eval_vpq import tune_config
+    from slotvps_tpu_torch.config import named_config
+    from slotvps_tpu_torch.inference import (BatchedVideoPipeline,
+                                             InferencePipeline,
+                                             _device_normalize, run_video)
+    from slotvps_tpu_torch.models.detector import (decode_pair,
+                                                   extract_features,
+                                                   init_model)
+    from slotvps_tpu_torch.utils.calibration import (calibrate_class_head,
+                                                     doctor_params)
+
+    cfg = tune_config(named_config("r50_fpn_slotvps"))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, slot_head=dataclasses.replace(cfg.model.slot_head,
+                                                 retriever_impl="pallas")))
+    rng = np.random.default_rng(0)
+    blocks = rng.integers(0, 256, (4, 8, 3), dtype=np.uint8)
+    base = np.repeat(np.repeat(blocks, 32, axis=0), 32, axis=1)
+    clips = [[np.clip(np.roll(base, 8 * t + 40 * v, axis=1)
+                      + rng.integers(-12, 13, base.shape), 0, 255)
+              .astype(np.uint8)[None] for t in range(3)] for v in range(2)]
+    model = init_model(torch.Generator().manual_seed(0), cfg.model,
+                       device=cuda_device)
+    doctor_params(model, torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        img = _device_normalize(torch.from_numpy(clips[0][0]).to(
+            cuda_device), cfg.data)
+        f = extract_features(model, cfg.model, img)
+        logits = decode_pair(model, cfg.model, f, f).pred_logits[0]
+    model, _ = calibrate_class_head(
+        model, logits, torch.Generator().manual_seed(2), target_valid=12,
+        threshold=cfg.model.postprocess.threshold)
+    size = (128, 256)
+    streams = [run_video(InferencePipeline(model, cfg, image_size=size), c)
+               for c in clips]
+    batched = BatchedVideoPipeline(model, cfg, 2,
+                                   image_size=size).run_videos(clips)
+    assert any(len(r.cls_inds) for s in streams for r in s)
+    for ref, got in zip(streams, batched):
+        for a, b in zip(ref, got):
+            for name in ("sseg", "panoptic", "cls_inds", "obj_ids",
+                         "cls_prob"):
+                assert np.array_equal(getattr(a, name), getattr(b, name)), \
+                    name

@@ -191,6 +191,28 @@ def test_batched_and_scan_match_jax_streaming(calibrated):  # noqa: F811
     _assert_same_results(refs[1], stream, "stream video 1")
 
 
+def test_batched_equals_port_streaming_bit_for_bit(calibrated):  # noqa: F811
+    """f32: BatchedVideoPipeline (B = 2) returns each video's streaming
+    results exactly, thing scores included (the backbone and the decoder
+    take one frame at a time; at batch 2 the CPU's f32 GEMMs move the
+    scores in their last bits)."""
+    cfg, params, _ = calibrated
+    tm = tiny_model_cfg("pallas_f32", tconfig)
+    tcfg = tconfig.Config(model=tm)
+    model = port_model(params, tm)
+    clip = _clip(0, 3)
+    clips = [clip, [np.roll(f, 24, axis=2) for f in clip]]
+    batched = BatchedVideoPipeline(model, tcfg, 2).run_videos(clips)
+    for v, c in enumerate(clips):
+        stream = run_video(InferencePipeline(model, tcfg), c)
+        assert all(len(r.cls_inds) for r in stream)
+        for t, (a, b) in enumerate(zip(stream, batched[v])):
+            for name in ("sseg", "panoptic", "cls_inds", "obj_ids",
+                         "cls_prob"):
+                assert np.array_equal(getattr(a, name), getattr(b, name)), \
+                    (v, t, name)
+
+
 def test_batched_pipeline_is_one_card_only():
     cfg = tiny_model_cfg("pallas_f32", tconfig)
     model = torch.nn.Linear(1, 1)
@@ -201,6 +223,38 @@ def test_batched_pipeline_is_one_card_only():
     assert pipe.n_devices == 1
     with pytest.raises(ValueError, match="share a length"):
         pipe.run_videos([[np.zeros((1, 8, 8, 3))], []])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_extract_takes_each_frame_at_batch_1(monkeypatch, dtype):
+    """BatchedVideoPipeline._extract feeds the backbone one frame at a
+    time: every extract_features call sees one frame, and each frame's
+    features equal those of the streaming pipeline's batch-1 call bit for
+    bit (at batch 2 the backbone's convolutions may sum in another order)."""
+    import slotvps_tpu_torch.inference as inf
+    from slotvps_tpu_torch.models.detector import init_model
+
+    tm = dataclasses.replace(tiny_model_cfg("pallas_f32", tconfig),
+                             compute_dtype=dtype)
+    tcfg = tconfig.Config(model=tm)
+    model = init_model(torch.Generator().manual_seed(0), tm, device="cpu")
+    img = np.concatenate(_clip(5, 2))
+    batches, real = [], inf.extract_features
+
+    def counted(model, cfg, x):
+        batches.append(x.shape[0])
+        return real(model, cfg, x)
+
+    monkeypatch.setattr(inf, "extract_features", counted)
+    with torch.inference_mode():
+        both = BatchedVideoPipeline(model, tcfg, 2)._extract(img)
+        assert batches == [1, 1]
+        stream = InferencePipeline(model, tcfg)
+        for i in range(2):
+            alone = stream._extract(img[i:i + 1])
+            for a, b in zip(alone.feat_trans + (alone.fcn_output,),
+                            both.feat_trans + (both.fcn_output,)):
+                assert torch.equal(a[0], b[i])
 
 
 # ---- the CLI ----
