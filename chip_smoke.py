@@ -9,7 +9,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
   1. device   — card name and power limit, torch/CUDA versions; the port's
      precision setup (no TF32, bf16 products reduced in f32).
   2. build    — compile the four kernel libraries from
-     slotvps_tpu_torch/csrc/ (one nvcc each, started together).
+     slotvps_tpu_torch/csrc/ (one nvcc each, started together); one line
+     per wgmma kernel (the bf16 DCN forward, slot attention's pass 1) with
+     its registers, dynamic shared memory and spills from ptxas.
   3. kernels  — each kernel against its plain PyTorch version on the card,
      with CUDA-event times of both and the bound: the DCN kernel in f32 and
      in bf16 at the 12 (tower block, FPN level) shapes of a 1024x2048
@@ -18,6 +20,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      so that repair has dirty tiles; sseg on [256, 512, 19] quarter-res
      logits with ties; slot attention at the decoder's four pixel counts;
      argmax with its runner-up map (top2) and hist at K = 64.
+     Batch invariance: the bf16 DCN at a P3 shape with B = 2 against each
+     image alone, slot attention with B = 2 at P = 32768 against each batch
+     element alone, bit for bit, and two runs equal.
      At the 12 shapes of the 800x1600 training crop (B=2: the reference
      and the current frame), each level at its halo, with offsets that
      clamp some taps: the DCN forward kernel on the f32 model's bf16 route
@@ -88,6 +93,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -315,7 +321,54 @@ def phase_build():
         built = {name: f.result() for name, f in futs.items()}
     for name, (path, secs) in built.items():
         log("build", f"nvcc built {path.name} in {secs:.2f} s")
+    for row in wgmma_kernel_resources(deform_conv.LIBRARY,
+                                      slot_attention.LIBRARY):
+        log("build", json.dumps(row))
     return {name: secs for name, (_, secs) in built.items()}
+
+
+# (kernel in ptxas' mangled names, C entry of its dynamic shared memory)
+WGMMA_KERNELS = (("dcn_fwd_bf16_kernel", "dcn_forward_bf16_smem"),
+                 ("slot_attn_partial_kernel", "sa_smem_bytes"))
+
+
+def wgmma_kernel_resources(*libs):
+    """Registers, spills and dynamic shared memory of every instance of the
+    wgmma kernels, from their libraries' ptxas reports."""
+    rows = []
+    for lib in libs:
+        handle = lib.load()
+        name = None
+        for line in lib.ptxas.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                continue
+            kern = next((k for k in WGMMA_KERNELS if name and k[0] in name),
+                        None)
+            if kern is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                stack, st, ld = map(int, m.groups())
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                tmpl = re.search(kern[0] + r"ILi(\d+)E(\w*?)E", name)
+                width = int(tmpl.group(1))
+                out = ("bf16" if "bfloat16" in tmpl.group(2) else "f32"
+                       if tmpl.group(2) == "f" else "")
+                rows.append(dict(
+                    kernel=f"{kern[0]}<{width}{', ' + out if out else ''}>",
+                    registers=int(m.group(1)), spill_stores=st,
+                    spill_loads=ld, stack_bytes=stack,
+                    dynamic_smem_bytes=getattr(handle, kern[1])(width)))
+                name = None
+    if len(rows) != 8:
+        raise AssertionError(f"ptxas reported {len(rows)} wgmma kernel "
+                             "instances, not 8 (6 DCN, 2 slot attention)")
+    return rows
 
 
 def _cuda_ms(fn, n=10, warmup=2):
@@ -690,11 +743,13 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
         # q, k, v read once, out written once; 2 flops per (slot, pixel,
-        # channel) in each product: q.k takes bf16 inputs with f32 sums (the
-        # tensor cores' type), p.v f32 p; the softmax ~5 f32 per (slot, pixel)
+        # channel) in each product, on the tensor cores (bf16 in, f32
+        # sums): q.k, and p.v as three exact bf16 parts of the f32 p (the
+        # kernel's work, csrc/slot_attention.cu); the softmax ~5 f32 per
+        # (slot, pixel)
         n_bytes = 2 * (n_slots + 2 * n_pix) * 256 + 4 * n_slots * 256
-        n_ops_bf16 = 2 * n_slots * 256 * n_pix
-        n_ops = 2 * n_slots * 256 * n_pix + 5 * n_slots * n_pix
+        n_ops_bf16 = 4 * 2 * n_slots * 256 * n_pix
+        n_ops = 5 * n_slots * n_pix
         row = dict(P=n_pix, calls_per_frame=calls, max_abs_err=err,
                    max_abs_ref=scale, bytes=n_bytes, ops=n_ops,
                    ops_bf16=n_ops_bf16)
@@ -717,6 +772,54 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
     total["bound_parts_ms"] = bound_parts(
         total["bytes"], total["ops"], n_ops_bf16=total["ops_bf16"])
     return total
+
+
+def phase_batch_invariance(dev, dcn_shape=(128, 256, 256, 256, 3),
+                           sa_pixels=32768, n_slots=SA_SLOTS):
+    """Each image of a batch of 2 against the same image alone, bit for
+    bit: the bf16 DCN (bf16 in and out) at a P3 shape and slot attention
+    at P = 32768; and each batched call equal in two runs.  These launches
+    are not the main path's."""
+    from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
+    from slotvps_tpu_torch.ops.cuda.slot_attention import (
+        slot_attention_hopper)
+
+    h, w, cin, cout, halo = dcn_shape
+    x, off, wt = (t.to(torch.bfloat16) for t in dcn_case(
+        dev, h, w, cin, cout, halo, seed=90, b=2))
+    with torch.no_grad():
+        both = deform_conv2d_hopper(x, off, wt, halo)
+        again = deform_conv2d_hopper(x, off, wt, halo)
+        alone = [deform_conv2d_hopper(x[i:i + 1].contiguous(),
+                                      off[i:i + 1].contiguous(), wt, halo)
+                 for i in range(2)]
+    g = torch.Generator(device=dev).manual_seed(91)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((2, n_slots, 256), (2, sa_pixels, 256),
+                             (2, sa_pixels, 256)))
+    sa_both = slot_attention_hopper(q, k, v)
+    sa_again = slot_attention_hopper(q, k, v)
+    sa_alone = [slot_attention_hopper(q[i:i + 1].contiguous(),
+                                      k[i:i + 1].contiguous(),
+                                      v[i:i + 1].contiguous())
+                for i in range(2)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    row = dict(
+        dcn_shape=f"2x{h}x{w} {cin}->{cout} halo {halo}",
+        dcn_equal_alone=[torch.equal(both[i:i + 1], alone[i])
+                         for i in range(2)],
+        dcn_equal_again=torch.equal(both, again),
+        sa_shape=f"2x{n_slots}x{sa_pixels}",
+        sa_equal_alone=[torch.equal(sa_both[i:i + 1], sa_alone[i])
+                        for i in range(2)],
+        sa_equal_again=torch.equal(sa_both, sa_again))
+    log("kernels", json.dumps({"batch_invariance": row}))
+    if not (all(row["dcn_equal_alone"]) and row["dcn_equal_again"]
+            and all(row["sa_equal_alone"]) and row["sa_equal_again"]):
+        raise AssertionError(f"a kernel's batch of 2 is not its images "
+                             f"alone bit for bit, or two runs differ: {row}")
+    return row
 
 
 def make_clip(h, w, n_frames, seed=0):
@@ -2015,6 +2118,7 @@ def main():
     pp_rows = phase_postproc_kernels(dev)
     sseg_row = phase_sseg_kernel(dev)
     sa_row = phase_slot_attention(dev)
+    phase_batch_invariance(dev)
     top2_rows = phase_top2_hist(dev)
     cfg, cfg32 = slice_config(), f32_config()
     model, frames = prepare(dev, cfg)

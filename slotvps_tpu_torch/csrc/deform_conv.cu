@@ -25,32 +25,73 @@
 // [3, 3, Cin, Cout], out [B, H, W, Cout]; x and weight in the compute
 // dtype; all contiguous.
 //
-// What bounds the forward on the card: the contraction.  One 1024x2048
-// frame runs the kernel 12 times (3 tower blocks x 4 FPN levels), 174,080
-// output pixels x ~2.06 MFLOP = ~0.36 TFLOP: 5.4 ms of f32 FMA at
-// 67 TFLOP/s, 0.36 ms of bf16 tensor-core work at 989 TFLOP/s.  The gather
-// is small beside the f32 contraction: 9 taps x 4 corners x Cin loads per
-// pixel, mostly L1/L2 hits because neighbouring pixels share corners; in
-// bf16, with the contraction on the tensor cores, the gather and the sample
-// staging are what is left.  The TPU kernel's one-hot-matmul detour is not
-// needed: the GPU gathers natively.
+// What bounds the forward on the card.  One 1024x2048 frame runs it 12
+// times (3 tower blocks x 4 FPN levels), 174,080 output pixels x ~2.06
+// MFLOP = ~0.36 TFLOP: 5.4 ms of f32 FMA at 67 TFLOP/s, 0.36 ms of bf16
+// tensor-core work at 989 TFLOP/s.  In bf16, with the contraction on the
+// tensor cores, what is left is the gather: 9 taps x 4 corners x Cin bf16
+// per output pixel (~8 GB a frame when each sample is formed once), mostly
+// L1/L2 hits because neighbouring pixels share corners, and the weights,
+// which every block streams through once (L2-resident, 1.2 MB at 256->256).
+// The TPU kernel's one-hot-matmul detour is not needed: the GPU gathers
+// natively.
 //
-// Forward design (simple first).  Both kernels: a block owns a strip of BP
-// output pixels of one row and a tile of BN output channels.  It computes
+// f32 forward (dcn_fwd_f32_kernel, simple first): a block owns a strip of
+// BP output pixels of one row and a tile of BN output channels.  It computes
 // each (tap, pixel) pair's four corner indices and weights once into shared
 // memory (make_tap; its geometry, tap_geom and tap_corners, is the
-// backward's too), then walks Cin in chunks of CK: its
-// threads gather the clamped bilinear samples into a shared-memory im2col
-// tile of 9*CK contracted rows (NHWC, so a corner's channels are
-// contiguous and loads coalesce), load the matching weight tile and
-// multiply the two.
-//   f32:  the tile is [9*CK, BP] f32; each thread accumulates a 4x4
-//         register tile of (pixel, channel) outputs in f32 FMA.
-//   bf16: the tile is [BP, 9*CK] bf16; eight warps run the [BP, 9*CK] x
-//         [9*CK, BN] product with nvcuda::wmma 16x16x16 bf16 fragments and
-//         f32 accumulators (warp w: pixel rows 16*(w%4), channel tiles
-//         2*(w/4) and 2*(w/4)+1), staged through shared memory on the way
-//         out.
+// backward's too), then walks Cin in chunks of CK: its threads gather the
+// clamped bilinear samples into a shared-memory im2col tile [9*CK, BP] f32
+// (NHWC, so a corner's channels are contiguous and loads coalesce), load
+// the matching weight tile, and each thread accumulates a 4x4 register tile
+// of (pixel, channel) outputs in f32 FMA.
+//
+// bf16 forward (dcn_fwd_bf16_kernel<NC, OutT>), built for the gather:
+//   * A block owns a 2-D tile of <= 64 output pixels (4x16, 4x8 or 2x8,
+//     so neighbouring pixels' corners stay in L1) and NC = 64, 128 or 256
+//     output channels: all of Cout <= 256 wherever the card fills, so each
+//     (pixel, tap, channel) sample is gathered once.  The wrapper picks the
+//     tile per level from H, W, Cout and the SM count (never from B):
+//     the largest tile that still puts >= 132 blocks on the card.  The 32x64
+//     level (2,048 pixels) has 128 tiles of 16 pixels, so there it splits
+//     Cout in two (NC = Cout/2): each sample is gathered twice, ~0.1 GB
+//     of extra L2 reads a frame, against one block per SM left idle.
+//   * Chunks of one tap x 64 input channels (K = 64, one 128-byte row per
+//     pixel).  Two producer warpgroups gather: a thread owns (pixel, 8
+//     channels), loads each of its tap's four corners as one 16-byte load,
+//     forms the 8 samples in f32 and stores 16 bytes into the A stage in
+//     the 128-byte-swizzled layout that wgmma reads (hopper.cuh); rows past
+//     the tile's pixels stay 0.  The gather is software-pipelined: a
+//     chunk's corner loads are issued before the previous chunk's samples
+//     are formed.  The tile's offsets are staged in shared memory once, so
+//     the tap geometry (tap_geom + tap_corners<true>, per tap, in
+//     registers) waits on no global load.  An invalid corner reads 0 with
+//     weight 0: an exact +0, so every corner takes the same FMAs.
+//   * The weights go through the same ring: the wrapper's weight image
+//     (dcn_wimg_kernel: the [64, NC] chunks already swizzled and zero-padded
+//     past Cin and Cout, ~1 us) lets one thread land a chunk with one bulk
+//     copy of the TMA unit (cp.async.bulk, completing on the stage's
+//     mbarrier), so a ragged Cin or Cout needs no tensor map and no second
+//     path.  The ring has 4 stages; producers run up to 4 chunks ahead.
+//   * One consumer warpgroup runs the [64, 64] x [64, NC] product of each
+//     chunk as 4 wgmma m64nNCk16 (bf16 in, f32 accumulators in registers:
+//     NC/2 a thread), keeps one chunk's products in flight, and frees a
+//     stage when its products are done.  Warp specialisation: the gather
+//     and the tensor cores overlap through the full / empty mbarriers; the
+//     producers' proxy fence makes their stores visible to wgmma.
+//   * What bounds it now (kernel_variants.py, H100): the gather's latency
+//     at one block of 12 warps per SM.  At P2 256->256 (0.82 ms) dropping
+//     the corner loads saves ~0.17 ms, the products ~0.11, the A stores
+//     ~0.09, the weight copies ~0.03; no one part dominates.
+//   * The epilogue writes OutT from registers: a quad of lanes exchanges
+//     words so that each lane stores 16 bytes (8 bf16 or 4 f32) of one
+//     pixel's row; element stores where Cout's row is not 16-byte aligned.
+// The rounding points are the Pallas kernel's (above), and the samples are
+// bit for bit those of the earlier wmma kernel (the same f32 sums in
+// corner order, each product exact).  Each output's sum runs over the
+// chunks in a fixed order (tap, then channel chunk, 16 channels per wgmma
+// step) whatever the tile, the grid or B: an image gives the same bits at
+// B = 1 and B = 2, and two runs are equal.
 //
 // Backward (dcn_backward_f32 / dcn_backward_bf16): from the output
 // gradient g [B, H, W, Cout] it computes what _dcn_bwd_kernel computes, at
@@ -100,8 +141,11 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -306,114 +350,375 @@ dcn_fwd_f32_kernel(const float* __restrict__ x,
 
 // ---- bf16 ----
 
-namespace bf = nvcuda::wmma;
+namespace bf = nvcuda::wmma;   // the backward's products
 using bf16 = __nv_bfloat16;
 
-constexpr int CK16 = 16;           // input channels per chunk (wmma k = 16)
-constexpr int KC16 = 9 * CK16;     // contracted rows per chunk: 144
-constexpr int LDA = KC16 + 8;      // sample tile row, bf16 elements
-constexpr int LDB = BN + 8;        // weight tile row, bf16 elements
-constexpr int LDC = BN + 4;        // f32 output staging row
-constexpr size_t kTapBytes = sizeof(Tap) * 9 * BP;
-constexpr size_t kABytes = sizeof(bf16) * BP * LDA;
-constexpr size_t kBBytes = sizeof(bf16) * KC16 * LDB;
-constexpr size_t kCBytes = sizeof(float) * BP * LDC;   // aliases A and B
-constexpr size_t kSmemBytes16 =
-    kTapBytes + (kABytes + kBBytes > kCBytes ? kABytes + kBBytes : kCBytes);
+constexpr int FM = 64;          // A rows: the block's output pixels, padded
+constexpr int FK = 64;          // input channels per chunk (128-byte rows)
+constexpr int F_STAGES = 4;     // depth of the A and weight rings
+constexpr int F_CONS = 128;     // consumer warpgroup: wgmma
+constexpr int F_PROD = 256;     // producer warps: the gather
+constexpr int F_THREADS = F_CONS + F_PROD;
+constexpr int F_ITEMS = FM * (FK / 8) / F_PROD;   // (pixel, 8 channels) each
 
-template <typename OutT>
-__global__ void __launch_bounds__(NT)
+// dynamic shared memory of the forward at NC output channels per block
+template <int NC>
+constexpr size_t fwd_smem_bytes() {
+  return 1024 + (size_t)F_STAGES * (FM + NC) * 128 + 2 * F_STAGES * 8 +
+         sizeof(float) * FM * 18;
+}
+
+// The weight image: for each output-channel tile ct, tap k and channel
+// chunk cc, an [NC rows (output channels)][64 input channels] bf16 block in
+// the 128-byte-swizzled K-major layout of hopper.cuh, zero past Cin and
+// Cout, so that one bulk copy lands a chunk as wgmma reads it.  One thread
+// per 16 bytes.
+__global__ void dcn_wimg_kernel(const bf16* __restrict__ weight,
+                                uint4* __restrict__ img, int Cin, int Cout,
+                                int nt, int n_cc, int n_units) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_units) return;
+  const int n = (e >> 3) % nt;
+  int rest = (e >> 3) / nt;
+  const int cc = rest % n_cc;
+  rest /= n_cc;
+  const int k = rest % 9;
+  const int co = (rest / 9) * nt + n;
+  const int c0 = cc * FK + (((e & 7) ^ (n & 7)) << 3);
+  uint32_t word[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    uint32_t lo = 0, hi = 0;
+    if (co < Cout && c0 + 2 * t < Cin)
+      lo = __bfloat16_as_ushort(
+          weight[((size_t)k * Cin + c0 + 2 * t) * Cout + co]);
+    if (co < Cout && c0 + 2 * t + 1 < Cin)
+      hi = __bfloat16_as_ushort(
+          weight[((size_t)k * Cin + c0 + 2 * t + 1) * Cout + co]);
+    word[t] = lo | (hi << 16);
+  }
+  img[e] = make_uint4(word[0], word[1], word[2], word[3]);
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);   // a low, b high
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
+  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+}
+
+// The block's output pixels p < tile_h * tile_w <= FM, all NC channels of
+// output tile ctile; warp w of the consumer holds pixel rows 16w + l/4 (+8)
+// of the wgmma accumulator (hopper.cuh).  Writes OutT in 16-byte stores
+// where the row allows them (out_vec), else element by element.
+template <int NC, typename OutT>
+__device__ __forceinline__ void fwd_epilogue(
+    const float (&acc)[NC / 2], OutT* __restrict__ out, size_t img, int H,
+    int W, int Cout, int ty0, int tx0, int tile_w, int n_pix, int ctile,
+    int out_vec) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q = lane & 3;
+  const int nlim = Cout - ctile * NC;   // this tile's columns inside Cout
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = 16 * warp + (lane >> 2) + 8 * h;
+    const int y = ty0 + p / tile_w;
+    const int xo = tx0 + p % tile_w;
+    const bool live = p < n_pix && y < H && xo < W;
+    OutT* orow = out + (img + (size_t)y * W + xo) * Cout + ctile * NC;
+    if constexpr (std::is_same<OutT, bf16>::value) {
+      // four n8 blocks at a time: lane q of the quad gathers block 4jb+q's
+      // 8 columns from its quad (a 4x4 transpose of 32-bit words)
+#pragma unroll
+      for (int jb = 0; jb < NC / 32; ++jb) {
+        uint32_t wv[4], got[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int r = 4 * (4 * jb + jj) + 2 * h;
+          wv[jj] = pack_bf2(acc[r], acc[r + 1]);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int src = (q - r) & 3;
+          const uint32_t v = __shfl_sync(0xffffffffu, pick4(wv, (q + r) & 3),
+                                         (lane & ~3) | src);
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            if (s == src) got[s] = v;
+        }
+        const int col = 8 * (4 * jb + q);
+        if (!live) continue;
+        if (out_vec && col + 8 <= nlim) {
+          *reinterpret_cast<uint4*>(orow + col) =
+              make_uint4(got[0], got[1], got[2], got[3]);
+        } else {
+#pragma unroll
+          for (int s = 0; s < 8; ++s)
+            if (col + s < nlim) {
+              const uint32_t wd = got[s >> 1];
+              orow[col + s] = __ushort_as_bfloat16(
+                  (unsigned short)((s & 1) ? (wd >> 16) : (wd & 0xffffu)));
+            }
+        }
+      }
+    } else {
+      // two n8 blocks at a time: even lanes write 4 columns of the first,
+      // odd lanes 4 of the second (one exchange with the neighbour lane)
+#pragma unroll
+      for (int jb = 0; jb < NC / 16; ++jb) {
+        const int r0 = 4 * (2 * jb) + 2 * h;
+        const int r1 = 4 * (2 * jb + 1) + 2 * h;
+        const bool odd = q & 1;
+        const float s0 = odd ? acc[r0] : acc[r1];
+        const float s1 = odd ? acc[r0 + 1] : acc[r1 + 1];
+        const float g0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const float g1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        const float4 u = odd ? make_float4(g0, g1, acc[r1], acc[r1 + 1])
+                             : make_float4(acc[r0], acc[r0 + 1], g0, g1);
+        const int col = odd ? 8 * (2 * jb + 1) + 2 * (q - 1)
+                            : 8 * (2 * jb) + 2 * q;
+        if (!live) continue;
+        if (out_vec && col + 4 <= nlim) {
+          *reinterpret_cast<float4*>(orow + col) = u;
+        } else {
+          const float uv[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            if (col + s < nlim) orow[col + s] = uv[s];
+        }
+      }
+    }
+  }
+}
+
+template <int NC, typename OutT>
+__global__ void __launch_bounds__(F_THREADS, 1)
 dcn_fwd_bf16_kernel(const bf16* __restrict__ x,
                     const float* __restrict__ offset,
-                    const bf16* __restrict__ weight,
-                    OutT* __restrict__ out,
-                    int H, int W, int Cin, int Cout, int halo, int n_ctiles) {
-  extern __shared__ __align__(128) unsigned char smem16[];
-  Tap* taps = reinterpret_cast<Tap*>(smem16);                     // [9][BP]
-  bf16* s_a = reinterpret_cast<bf16*>(smem16 + kTapBytes);        // [BP][LDA]
-  bf16* s_b = reinterpret_cast<bf16*>(smem16 + kTapBytes + kABytes);
-  float* s_c = reinterpret_cast<float*>(smem16 + kTapBytes);      // [BP][LDC]
+                    const unsigned char* __restrict__ wimg,
+                    OutT* __restrict__ out, int H, int W, int Cin, int Cout,
+                    int halo, int tile_h, int tile_w, int tiles_x,
+                    int n_ctiles, int vec, int out_vec) {
+  using namespace hopper;
+  extern __shared__ unsigned char fsm_raw[];
+  unsigned char* s_a =
+      fsm_raw + ((1024 - (smem_addr(fsm_raw) & 1023)) & 1023);   // [S][FM*128]
+  unsigned char* s_b = s_a + F_STAGES * FM * 128;               // [S][NC*128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_b + F_STAGES * NC * 128);
+  uint64_t* empty = full + F_STAGES;
+  float* s_off = reinterpret_cast<float*>(empty + F_STAGES);   // [FM][18]
 
   const int tid = threadIdx.x;
   const int ctile = blockIdx.x % n_ctiles;
   const int ptile = blockIdx.x / n_ctiles;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  const int px0 = ptile * BP;
-  const int n0 = ctile * BN;
-  const size_t img = (size_t)b * H * W;
+  const int ty0 = (ptile / tiles_x) * tile_h;
+  const int tx0 = (ptile % tiles_x) * tile_w;
+  const int n_pix = tile_h * tile_w;
+  const size_t img = (size_t)blockIdx.y * H * W;
+  const int n_cc = (Cin + FK - 1) / FK;
+  const int n_chunks = 9 * n_cc;
 
-  // 1. sampling descriptors, corner weights rounded to bf16
-  for (int e = tid; e < 9 * BP; e += NT)
-    taps[e] = make_tap<true>(offset, img, y, px0 + e % BP, e / BP, H,
-                                   W, halo);
-
-  const int warp = tid / 32;
-  const int wm = warp % 4;          // pixel rows 16*wm .. 16*wm+15
-  const int wn = (warp / 4) * 2;    // channel tiles wn, wn+1 (16 each)
-  bf::fragment<bf::accumulator, 16, 16, 16, float> acc[2];
-  bf::fill_fragment(acc[0], 0.f);
-  bf::fill_fragment(acc[1], 0.f);
-
-  for (int c0 = 0; c0 < Cin; c0 += CK16) {
-    __syncthreads();  // descriptors written / previous chunk consumed
-    // 2. im2col tile s_a[p][k*CK16 + c]: the f32 sum of the four bf16
-    //    weight x bf16 input products (exact in f32), rounded to bf16
-    for (int e = tid; e < 9 * BP * CK16; e += NT) {
-      const int c = e % CK16;
-      const int kp = e / CK16;       // k * BP + p
-      const Tap& t = taps[kp];
-      float v = 0.f;
-      if (c0 + c < Cin) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (t.idx[j] >= 0)
-            v += t.w[j] * __bfloat162float(x[(img + t.idx[j]) * Cin + c0 + c]);
-      }
-      s_a[(kp % BP) * LDA + (kp / BP) * CK16 + c] = __float2bfloat16_rn(v);
+  if (tid == 0) {
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&full[s], F_PROD + 1);   // the gather + the weight copy
+      mbar_init(&empty[s], F_CONS);
     }
-    // 3. weight tile s_b[k*CK16 + c][n] = weight[k][c0+c][n0+n], 0 outside
-    for (int e = tid; e < KC16 * BN; e += NT) {
-      const int n = e % BN;
-      const int r = e / BN;
-      const int k = r / CK16;
-      const int c = r % CK16;
-      bf16 v = __float2bfloat16_rn(0.f);
-      if (c0 + c < Cin && n0 + n < Cout)
-        v = weight[((size_t)k * Cin + c0 + c) * Cout + n0 + n];
-      s_b[r * LDB + n] = v;
+    mbar_init_fence();
+  }
+  // A rows past the block's pixels stay 0
+  for (int e = tid; e < F_STAGES * FM * 8; e += F_THREADS)
+    reinterpret_cast<uint4*>(s_a)[e] = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+  __syncthreads();
+
+  if (tid < F_CONS) {
+    // ---- consumer: [FM, 9*Cin] x [9*Cin, NC] on wgmma, f32 in registers
+    float acc[NC / 2];
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < n_chunks; ++i) {
+      const int s = i % F_STAGES;
+      mbar_wait(&full[s], (i / F_STAGES) & 1);
+      const unsigned char* a = s_a + s * FM * 128;
+      const unsigned char* b = s_b + s * NC * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FK / 16; ++kk)
+        wgmma<NC, 0, 0>(acc, desc128(a + 32 * kk, 16, 1024),
+                        desc128(b + 32 * kk, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<1>();   // chunk i-1's products are done: free its stage
+      if (i > 0) mbar_arrive(&empty[(i - 1) % F_STAGES]);
     }
-    __syncthreads();
-    // 4. tensor-core contraction over the chunk's 9*CK16 rows
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fwd_epilogue<NC, OutT>(acc, out, img, H, W, Cout, ty0, tx0, tile_w,
+                           n_pix, ctile, out_vec);
+  } else {
+    // ---- producers: per chunk (tap k, channels cc*64 ..), thread pt
+    // forms the 8 samples of channels 8g .. 8g+7 of pixel p (g = e & 7,
+    // p = e >> 3, e = pt + F_PROD*i) and thread 0 copies the weight chunk.
+    // The gather is software-pipelined: chunk ic+1's corner loads are in
+    // flight while chunk ic's samples are formed and stored.
+    const int pt = tid - F_CONS;
+    const unsigned char* wsrc =
+        wimg + (size_t)ctile * n_chunks * NC * 128;
+    // the tile's offsets, staged once (the tap geometry reads them 9 times)
+    for (int e = pt; e < n_pix * 18; e += F_PROD) {
+      const int p = e / 18;
+      const int y = ty0 + p / tile_w;
+      const int xo = tx0 + p % tile_w;
+      s_off[e] = y < H && xo < W
+                     ? offset[(img + (size_t)y * W + xo) * 18 + e % 18]
+                     : 0.f;
+    }
+    named_sync(1, F_PROD);
+    int pix[F_ITEMS];   // pixel of item i, -1 past the tile
 #pragma unroll
-    for (int kk = 0; kk < KC16; kk += 16) {
-      bf::fragment<bf::matrix_a, 16, 16, 16, bf16, bf::row_major> fa;
-      bf::load_matrix_sync(fa, s_a + wm * 16 * LDA + kk, LDA);
+    for (int i = 0; i < F_ITEMS; ++i) {
+      const int p = (pt + F_PROD * i) >> 3;
+      pix[i] = p < n_pix ? p : -1;
+    }
+    const int g8 = 8 * (pt & 7);   // the items' channel offset in a chunk
+    Tap tp[F_ITEMS];    // the tap of the chunk being loaded
+    uint4 un[F_ITEMS][4];
+    auto set_tap = [&](int k) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        bf::fragment<bf::matrix_b, 16, 16, 16, bf16, bf::row_major> fb;
-        bf::load_matrix_sync(fb, s_b + kk * LDB + (wn + i) * 16, LDB);
-        bf::mma_sync(acc[i], fa, fb, acc[i]);
+      for (int i = 0; i < F_ITEMS; ++i) {
+        const int p = pix[i] < 0 ? 0 : pix[i];
+        const int y = ty0 + p / tile_w;
+        const int xo = tx0 + p % tile_w;
+        // a pixel outside the tile or the image samples nothing
+        TapGeom gm{};   // valid = false
+        if (pix[i] >= 0 && y < H && xo < W)
+          gm = tap_geom(s_off + p * 18, y, xo, k, H, W, halo);
+        tap_corners<true>(gm, 0, H, W, tp[i].idx, tp[i].w);
       }
+    };
+    // corner j of item i at channels c .. c+7 (zeros past Cin or off the
+    // image: an invalid corner has weight 0 and adds an exact +0)
+    auto load_chunk = [&](int cc) {
+      const int c = cc * FK + g8;
+#pragma unroll
+      for (int i = 0; i < F_ITEMS; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          un[i][j] = make_uint4(0, 0, 0, 0);
+          if (tp[i].idx[j] < 0 || c >= Cin) continue;
+          const bf16* src = x + (img + tp[i].idx[j]) * Cin + c;
+          if (vec) {
+            un[i][j] = __ldg(reinterpret_cast<const uint4*>(src));
+          } else {
+            uint32_t h[8];
+#pragma unroll
+            for (int t = 0; t < 8; ++t)
+              h[t] = c + t < Cin ? __bfloat16_as_ushort(src[t]) : 0u;
+            un[i][j] = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
+                                  h[4] | h[5] << 16, h[6] | h[7] << 16);
+          }
+        }
+    };
+    set_tap(0);
+    load_chunk(0);
+    for (int ic = 0; ic < n_chunks; ++ic) {
+      const int s = ic % F_STAGES;
+      uint4 uc[F_ITEMS][4];
+      float wc[F_ITEMS][4];
+#pragma unroll
+      for (int i = 0; i < F_ITEMS; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uc[i][j] = un[i][j];
+          wc[i][j] = tp[i].w[j];
+        }
+      if (ic + 1 < n_chunks) {
+        if ((ic + 1) % n_cc == 0) set_tap((ic + 1) / n_cc);
+        load_chunk((ic + 1) % n_cc);
+      }
+      mbar_wait(&empty[s], ((ic / F_STAGES) & 1) ^ 1);
+      if (pt == 0) {
+        mbar_arrive_expect_tx(&full[s], NC * 128);
+        bulk_load(s_b + s * NC * 128, wsrc + (size_t)ic * NC * 128,
+                  NC * 128, &full[s]);
+      }
+      unsigned char* a = s_a + s * FM * 128;
+#pragma unroll
+      for (int i = 0; i < F_ITEMS; ++i) {
+        if (pix[i] < 0) continue;
+        // the sample: f32 sum over corners 0..3 of bf16 weight x bf16
+        // input (exact products), rounded to bf16
+        float v[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) v[t] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float m = wc[i][j];
+          const uint32_t wd[4] = {uc[i][j].x, uc[i][j].y, uc[i][j].z,
+                                  uc[i][j].w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            v[2 * t] = fmaf(m, bf_lo(wd[t]), v[2 * t]);
+            v[2 * t + 1] = fmaf(m, bf_hi(wd[t]), v[2 * t + 1]);
+          }
+        }
+        const int p = pix[i];
+        *reinterpret_cast<uint4*>(a + p * 128 + (((g8 >> 3) ^ (p & 7)) << 4)) =
+            make_uint4(pack_bf2(v[0], v[1]), pack_bf2(v[2], v[3]),
+                       pack_bf2(v[4], v[5]), pack_bf2(v[6], v[7]));
+      }
+      fence_proxy_async();
+      mbar_arrive(&full[s]);
     }
   }
+}
 
-  // 5. epilogue: f32 sums through shared memory, written as OutT (rounded
-  //    to bf16 for a bf16 output)
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    bf::store_matrix_sync(s_c + wm * 16 * LDC + (wn + i) * 16, acc[i], LDC,
-                          bf::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BP * BN; e += NT) {
-    const int n = e % BN;
-    const int p = e / BN;
-    const int xo = px0 + p;
-    if (xo < W && n0 + n < Cout)
-      out[(img + (size_t)y * W + xo) * Cout + n0 + n] =
-          from_f32<OutT>(s_c[p * LDC + n]);
+template <int NC>
+int launch_fwd_bf16(const bf16* x, const float* offset, const bf16* weight,
+                    void* wimg, void* out, int out_f32, int B, int H, int W,
+                    int Cin, int Cout, int halo, int tile_h, int tile_w,
+                    cudaStream_t stream) {
+  const int n_cc = (Cin + FK - 1) / FK;
+  const int n_ctiles = (Cout + NC - 1) / NC;
+  const int n_units = n_ctiles * 9 * n_cc * NC * 8;
+  dcn_wimg_kernel<<<(n_units + 255) / 256, 256, 0, stream>>>(
+      weight, static_cast<uint4*>(wimg), Cin, Cout, NC, n_cc, n_units);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W + tile_w - 1) / tile_w;
+  const int tiles_y = (H + tile_h - 1) / tile_h;
+  const dim3 grid(tiles_y * tiles_x * n_ctiles, B);
+  const size_t smem = fwd_smem_bytes<NC>();
+  const int vec = Cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const size_t osz = out_f32 ? sizeof(float) : sizeof(bf16);
+  const int out_vec = (Cout * osz) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const unsigned char* wi = static_cast<const unsigned char*>(wimg);
+  if (out_f32) {
+    err = cudaFuncSetAttribute(dcn_fwd_bf16_kernel<NC, float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dcn_fwd_bf16_kernel<NC, float><<<grid, F_THREADS, smem, stream>>>(
+        x, offset, wi, static_cast<float*>(out), H, W, Cin, Cout, halo,
+        tile_h, tile_w, tiles_x, n_ctiles, vec, out_vec);
+  } else {
+    err = cudaFuncSetAttribute(dcn_fwd_bf16_kernel<NC, bf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dcn_fwd_bf16_kernel<NC, bf16><<<grid, F_THREADS, smem, stream>>>(
+        x, offset, wi, static_cast<bf16*>(out), H, W, Cin, Cout, halo,
+        tile_h, tile_w, tiles_x, n_ctiles, vec, out_vec);
   }
+  return (int)cudaGetLastError();
 }
 
 // ---- backward ----
@@ -1029,39 +1334,43 @@ extern "C" int dcn_forward_f32(const void* x, const void* offset,
   return (int)cudaGetLastError();
 }
 
-// bf16 x and weight, f32 offset; out f32 (out_f32 != 0) or bf16; any Cout.
-// Launches on `stream`; returns cudaGetLastError() as an int (0 =
-// launched).
+// bf16 x and weight, f32 offset; out f32 (out_f32 != 0) or bf16; any Cin
+// and Cout.  A block owns a tile_h x tile_w pixel tile (<= 64 pixels) and
+// n_tile (64, 128 or 256) output channels; `wimg` is scratch for the weight
+// image, n_ctiles * 9 * ceil(Cin/64) * n_tile * 64 bf16 (n_ctiles =
+// ceil(Cout / n_tile)).  Launches the image and the forward on `stream`;
+// returns cudaGetLastError() as an int (0 = launched).
 extern "C" int dcn_forward_bf16(const void* x, const void* offset,
-                                const void* weight, void* out, int out_f32,
-                                int B, int H, int W, int Cin, int Cout,
-                                int halo, void* stream) {
-  const int n_ctiles = (Cout + BN - 1) / BN;
-  const int n_ptiles = (W + BP - 1) / BP;
-  dim3 grid(n_ptiles * n_ctiles, H, B);
-  cudaError_t err;
-  if (out_f32) {
-    err = cudaFuncSetAttribute(dcn_fwd_bf16_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kSmemBytes16);
-    if (err != cudaSuccess) return (int)err;
-    dcn_fwd_bf16_kernel<float>
-        <<<grid, NT, kSmemBytes16, (cudaStream_t)stream>>>(
-            static_cast<const bf16*>(x), static_cast<const float*>(offset),
-            static_cast<const bf16*>(weight), static_cast<float*>(out), H, W,
-            Cin, Cout, halo, n_ctiles);
-  } else {
-    err = cudaFuncSetAttribute(dcn_fwd_bf16_kernel<bf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kSmemBytes16);
-    if (err != cudaSuccess) return (int)err;
-    dcn_fwd_bf16_kernel<bf16>
-        <<<grid, NT, kSmemBytes16, (cudaStream_t)stream>>>(
-            static_cast<const bf16*>(x), static_cast<const float*>(offset),
-            static_cast<const bf16*>(weight), static_cast<bf16*>(out), H, W,
-            Cin, Cout, halo, n_ctiles);
+                                const void* weight, void* wimg, void* out,
+                                int out_f32, int B, int H, int W, int Cin,
+                                int Cout, int halo, int tile_h, int tile_w,
+                                int n_tile, void* stream) {
+  if (tile_h < 1 || tile_w < 1 || tile_h * tile_w > FM)
+    return (int)cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float* ob = static_cast<const float*>(offset);
+  const bf16* wb = static_cast<const bf16*>(weight);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n_tile) {
+    case 64:
+      return launch_fwd_bf16<64>(xb, ob, wb, wimg, out, out_f32, B, H, W, Cin,
+                                 Cout, halo, tile_h, tile_w, s);
+    case 128:
+      return launch_fwd_bf16<128>(xb, ob, wb, wimg, out, out_f32, B, H, W,
+                                  Cin, Cout, halo, tile_h, tile_w, s);
+    case 256:
+      return launch_fwd_bf16<256>(xb, ob, wb, wimg, out, out_f32, B, H, W,
+                                  Cin, Cout, halo, tile_h, tile_w, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the bf16 forward at n_tile output channels.
+extern "C" int dcn_forward_bf16_smem(int n_tile) {
+  return n_tile == 64    ? (int)fwd_smem_bytes<64>()
+         : n_tile == 128 ? (int)fwd_smem_bytes<128>()
+                         : (int)fwd_smem_bytes<256>();
 }
 
 // Backward of the forward of the same dtype.  x, weight and g in the

@@ -10,197 +10,280 @@
 //
 // The scores are f32 sums of the exact bf16 products; the softmax over the
 // L slots is per pixel, in f32, with expf (no fast math); the
-// probabilities stay f32 in the product with v; out is f32.  Each pixel's
-// softmax is complete in itself, so pixels are tiled freely: no online
-// rescaling.
+// probabilities stay f32 in the product with v (below: as three exact bf16
+// parts); out is f32.  Each pixel's softmax is complete in itself, so
+// pixels are tiled freely: no online rescaling.
 //
 // What bounds it on the card: one 1024x2048 frame runs it 14 times (7
-// decoder stages x 2 frames) over P = 2048 .. 131072 pixels, 4*L*C*sum(P)
-// = ~71 GFLOP and ~0.71 GB of k and v (0.21 ms of HBM).  Half the flops,
-// q.k, take bf16 inputs with f32 sums: the tensor cores' type, 0.036 ms at
-// 989 TFLOP/s.  The other half, p.v, keeps p in f32 (rounding p to bf16
-// would change the function): 0.53 ms of f32 FMA at 67 TFLOP/s.  So the
-// card's bound is ~0.57 ms, set by p.v.  This kernel runs q.k in f32 FMA
-// as well, outside the tensor cores, which the bound does not grant it.
+// decoder stages x 2 frames) over P = 2048 .. 131072 pixels, ~0.71 GB of k
+// and v (0.21 ms of HBM).  q.k is 2*L*C*sum(P) = ~35 GFLOP of bf16 products
+// with f32 sums, the tensor cores' type.  p.v keeps p in f32: here p is
+// split exactly into three bf16 parts, hi = bf16(p), mid = bf16(p - hi),
+// lo = bf16(p - hi - mid) (8 + 8 + 8 significant bits hold p's 24, so hi +
+// mid + lo == p), and p.v is the three bf16 products hi.v + mid.v + lo.v,
+// each exact, summed in f32 on the tensor cores: the same function up to
+// the order of f32 sums, 3 x 35 GFLOP of tensor-core work.  So the bound is
+// the larger of ~140 GFLOP at 989 TFLOP/s (~0.14 ms) and the HBM time of k
+// and v (~0.21 ms): bytes.
 //
-// Design (simple first).  Pass 1: grid (G, B), G <= the SM count; block g
-// owns a contiguous run of T-pixel tiles and keeps q^T (bf16, padded to 128
-// slots with zeros) in shared memory.  Per tile it stages k^T, computes the
-// [128, T] scores (each thread a 4x4 register tile), takes the per-pixel
-// softmax (one warp per pixel, shuffles), and accumulates P [128, T] x v
-// [T, C] into registers: thread t holds slots 64*(t/128) .. +63 of the two
-// channels 2*(t%128), 2*(t%128)+1.  It writes its [L, C] partial sum.
-// Pass 2 sums the G partials of each (b, l, c) in order g = 0 .. G-1, so
-// the result is the same from run to run (no f32 atomics).
+// Design.  Pass 1: grid (G, 2, B); block (g, half, b) owns a contiguous
+// run of 64-pixel tiles and output channels half*128 .. +127 (two blocks
+// per run keep the P.V accumulators at 128 registers a thread; each
+// recomputes the run's scores, which are cheap on the tensor cores).  One
+// producer warp lands, by TMA (3-D tensor maps, 128-byte swizzle, zeros
+// past P and L), q once ([NQ slots x 256] bf16, NQ = 64 or 128 >= L) and
+// per tile the k tile [64 x 256] and the v tile [64 x 128] into two-stage
+// rings with full / empty mbarriers; k's stage is freed as soon as the
+// scores are taken, so the next k tile lands during the softmax and P.V.
+// One consumer warpgroup per tile:
+//   1. S^T [64 pixels x NQ slots] = k_tile . q^T on wgmma (m64nNQk16, 16
+//      steps over the 256 channels, f32 accumulators in registers);
+//   2. the softmax in registers: a pixel row's slots lie in one quad of
+//      lanes (hopper.cuh's accumulator layout), so its max and sum are two
+//      shuffles each; slots >= L are masked out, pixels >= P get p = 0;
+//      p = exp * (1 / sum): one IEEE division a pixel (a division a slot
+//      took two thirds of the kernel's time, measured on the H100);
+//   3. p's three bf16 parts go to shared memory as [pixels][slots] tiles;
+//   4. out^T's half [NQ slots x 128 channels] += P^T . v on wgmma, A = P^T
+//      and B = v both read in the MN-major (transposed) layout: per 16
+//      pixels the hi, mid and lo products in that order.
+// What bounds it now (kernel_variants.py, H100, P = 131072, 0.21 ms): the
+// consumer warpgroup's f32 work at one block per SM, expf first (~0.09
+// ms); the P.V products take ~0.035 ms (the mid and lo parts ~0.02 of it)
+// and q.k hides behind the rest.  The 128-slot instance keeps 255
+// registers and spills ~100 bytes; rolling the P.V loop removes the spill
+// for 3 % but has ptxas insert wgmma fences, so the loops stay unrolled.
+// The block writes its [L, 128] partial sum.  Pass 2 sums the G partials
+// of each (b, l, c) in order g = 0 .. G-1, so the result is the same from
+// run to run (no f32 atomics); G depends on P and the SM count only, so an
+// image gives the same bits alone and in a batch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int LMAX = 128;        // slots, padded
+using bf16 = __nv_bfloat16;
+
 constexpr int CH = 256;          // channels
-constexpr int T = 32;            // pixels per tile
-constexpr int NT = 256;          // threads per block
-constexpr int KLD = T + 4;       // k^T row, bf16 (8-byte aligned rows)
-constexpr int SLD = LMAX + 4;    // score / probability row, f32
-constexpr size_t kQBytes = sizeof(__nv_bfloat16) * CH * LMAX;
-constexpr size_t kKBytes = sizeof(__nv_bfloat16) * CH * KLD;
-constexpr size_t kSBytes = sizeof(float) * T * SLD;
-constexpr size_t kSmemBytes = kQBytes + kKBytes + kSBytes;
+constexpr int TP = 64;           // pixels per tile (the wrapper's
+                                 // TILE_PIXELS)
+constexpr int CHH = 128;         // output channels per block
+constexpr int SA_CONS = 128;     // the consumer warpgroup
+constexpr int SA_THREADS = SA_CONS + 32;   // + one producer warp
+constexpr int K_BYTES = TP * CH * 2;       // one k tile, 32 KB
+constexpr int V_BYTES = TP * CHH * 2;      // one v tile, 16 KB
 
-// Four bf16 values (8 bytes) widened to f32.
-__device__ __forceinline__ void unpack4(uint2 u, float f[4]) {
-  f[0] = __uint_as_float(u.x << 16);
-  f[1] = __uint_as_float(u.x & 0xffff0000u);
-  f[2] = __uint_as_float(u.y << 16);
-  f[3] = __uint_as_float(u.y & 0xffff0000u);
-}
+// shared memory: q, the k ring, the v ring, p's three parts, barriers
+template <int NQ>
+struct SaSmem {
+  static constexpr int q_bytes = NQ * CH * 2;
+  static constexpr int p_bytes = TP * NQ * 2;   // one part
+  static constexpr int k_off = q_bytes;
+  static constexpr int v_off = k_off + 2 * K_BYTES;
+  static constexpr int p_off = v_off + 2 * V_BYTES;
+  static constexpr int bar_off = p_off + 3 * p_bytes;
+  static constexpr size_t bytes = 1024 + bar_off + 9 * 8;
+};
 
-__global__ void __launch_bounds__(NT, 1)
-slot_attn_partial_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
+template <int NQ>
+__global__ void __launch_bounds__(SA_THREADS, 1)
+slot_attn_partial_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
                          float* __restrict__ part, int L, int P,
                          int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qT = reinterpret_cast<__nv_bfloat16*>(smem);  // [CH][LMAX]
-  __nv_bfloat16* kT =
-      reinterpret_cast<__nv_bfloat16*>(smem + kQBytes);          // [CH][KLD]
-  float* S = reinterpret_cast<float*>(smem + kQBytes + kKBytes);  // [T][SLD]
+  using namespace hopper;
+  using Sm = SaSmem<NQ>;
+  constexpr int MT = NQ / 64;   // slot blocks of P.V (m64 each)
+  extern __shared__ unsigned char sa_raw[];
+  unsigned char* sm =
+      sa_raw + ((1024 - (smem_addr(sa_raw) & 1023)) & 1023);
+  unsigned char* s_q = sm;                 // [4][NQ][128 B], K-major
+  unsigned char* s_k = sm + Sm::k_off;     // [2][4][64][128 B], K-major
+  unsigned char* s_v = sm + Sm::v_off;     // [2][2][64][128 B], MN-major
+  unsigned char* s_p = sm + Sm::p_off;     // [3][NQ/64][64][128 B], MN-major
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Sm::bar_off);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* k_empty = bars + 3;
+  uint64_t* v_full = bars + 5;
+  uint64_t* v_empty = bars + 7;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int g = blockIdx.x;
   const int G = gridDim.x;
-  const int b = blockIdx.y;
-  const __nv_bfloat16* qb = q + (size_t)b * L * CH;
-  const __nv_bfloat16* kb = k + (size_t)b * P * CH;
-  const __nv_bfloat16* vb = v + (size_t)b * P * CH;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const int half = blockIdx.y;
+  const int b = blockIdx.z;
+  const int t_lo = (int)((long)g * n_tiles / G);
+  const int n_my = (int)((long)(g + 1) * n_tiles / G) - t_lo;
 
-  // q^T, slot fastest (conflict-free stores; q is small and L2-resident)
-  for (int e = tid; e < CH * LMAX; e += NT) {
-    const int l = e % LMAX;
-    const int c = e / LMAX;
-    qT[c * LMAX + l] = l < L ? qb[(size_t)l * CH + c] : zero;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], SA_CONS);
+      mbar_init(&v_empty[s], SA_CONS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= SA_CONS) {
+    // ---- producer warp: one lane issues every copy
+    if (tid == SA_CONS) {
+      mbar_arrive_expect_tx(q_full, Sm::q_bytes);
+      for (int kb = 0; kb < 4; ++kb)
+        tma_load_3d(s_q + kb * NQ * 128, &qmap, 64 * kb, 0, b, q_full);
+      for (int i = 0; i < n_my; ++i) {
+        const int s = i & 1;
+        const uint32_t ph = (i >> 1) & 1;
+        const int px0 = (t_lo + i) * TP;
+        mbar_wait(&k_empty[s], ph ^ 1);
+        mbar_arrive_expect_tx(&k_full[s], K_BYTES);
+        for (int kb = 0; kb < 4; ++kb)
+          tma_load_3d(s_k + s * K_BYTES + kb * TP * 128, &kmap, 64 * kb, px0,
+                      b, &k_full[s]);
+        mbar_wait(&v_empty[s], ph ^ 1);
+        mbar_arrive_expect_tx(&v_full[s], V_BYTES);
+        for (int mb = 0; mb < 2; ++mb)
+          tma_load_3d(s_v + s * V_BYTES + mb * TP * 128, &vmap,
+                      CHH * half + 64 * mb, px0, b, &v_full[s]);
+      }
+    }
+    return;
   }
 
-  const int lg = tid & 31;           // score tile: slots 4*lg .. 4*lg+3
-  const int pg = tid >> 5;           //             pixels 4*pg .. 4*pg+3
-  const int cp = tid & 127;          // P x v: channels 2*cp, 2*cp+1
-  const int lh = tid >> 7;           //        slots 64*lh .. 64*lh+63
-  float acc[64][2];
+  // ---- consumer warpgroup
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q4 = lane & 3;
+  float S[NQ / 2];           // S^T tile: pixel rows, slot columns
+  float o[MT][CHH / 2];      // out^T half: slot rows, channel columns
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < CHH / 2; ++i) o[t][i] = 0.f;
 
-  const long t_lo = (long)g * n_tiles / G;
-  const long t_hi = (long)(g + 1) * n_tiles / G;
-  for (long tile = t_lo; tile < t_hi; ++tile) {
-    const int pix0 = (int)(tile * T);
-    __syncthreads();   // q^T staged / previous tile consumed
-    // k^T tile: pairs of channels of one pixel per thread (coalesced)
-    for (int e = tid; e < T * (CH / 2); e += NT) {
-      const int p = e / (CH / 2);
-      const int c = 2 * (e % (CH / 2));
-      __nv_bfloat162 kv = __halves2bfloat162(zero, zero);
-      if (pix0 + p < P)
-        kv = *reinterpret_cast<const __nv_bfloat162*>(
-            kb + (size_t)(pix0 + p) * CH + c);
-      kT[c * KLD + p] = kv.x;
-      kT[(c + 1) * KLD + p] = kv.y;
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_my; ++i) {
+    const int s = i & 1;
+    const uint32_t ph = (i >> 1) & 1;
+    const int px0 = (t_lo + i) * TP;
+
+    // 1. scores on the tensor cores
+    mbar_wait(&k_full[s], ph);
+    const unsigned char* kt = s_k + s * K_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < CH / 16; ++st) {
+      const int kb = st >> 2;
+      const int off = 32 * (st & 3);
+      wgmma<NQ, 0, 0>(S, desc128(kt + kb * TP * 128 + off, 16, 1024),
+                      desc128(s_q + kb * NQ * 128 + off, 16, 1024), st > 0);
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(S);
+    mbar_arrive(&k_empty[s]);
+    named_sync(1, SA_CONS);   // the previous tile's P.V is done everywhere
 
-    // scores S[p][l] = sum_c q[l][c] k[p][c], f32
-    float s[4][4];
+    // 2. per-pixel softmax over the L slots, 3. p's parts to shared memory
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < CH; ++c) {
-      float qf[4], kf[4];
-      unpack4(*reinterpret_cast<const uint2*>(qT + c * LMAX + 4 * lg), qf);
-      unpack4(*reinterpret_cast<const uint2*>(kT + c * KLD + 4 * pg), kf);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qf[i], kf[j], s[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) S[(4 * pg + j) * SLD + 4 * lg + i] = s[i][j];
-    __syncthreads();
-
-    // per-pixel softmax over the L slots: warp w takes pixels 4w .. 4w+3
-#pragma unroll
-    for (int pp = 0; pp < 4; ++pp) {
-      const int p = 4 * warp + pp;
-      float* row = S + p * SLD;
-      float val[4];
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + (lane >> 2) + 8 * h;
+      const bool live = px0 + row < P;
       float mx = -INFINITY;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int l = lane + 32 * u;
-        val[u] = l < L ? row[l] : -INFINITY;
-        mx = fmaxf(mx, val[u]);
-      }
+      for (int j = 0; j < NQ / 8; ++j)
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + 2 * q4 + e < L) mx = fmaxf(mx, S[4 * j + 2 * h + e]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       float z = 0.f;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        val[u] = lane + 32 * u < L ? expf(val[u] - mx) : 0.f;
-        z += val[u];
+      for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 4 * j + 2 * h + e;
+          S[r] = 8 * j + 2 * q4 + e < L ? expf(S[r] - mx) : 0.f;
+          z += S[r];
+        }
+      z += __shfl_xor_sync(0xffffffffu, z, 1);
+      z += __shfl_xor_sync(0xffffffffu, z, 2);
+      const float rz = 1.f / z;   // one division a pixel, not one a slot
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j) {
+        uint32_t w3[3];
+        float pv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          pv[e] = live ? S[4 * j + 2 * h + e] * rz : 0.f;
+        // hi, mid, lo: each residual is exact in f32
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(pv[0], pv[1]);
+        const float r0 = pv[0] - __low2float(hi);
+        const float r1 = pv[1] - __high2float(hi);
+        const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            r0 - __low2float(mid), r1 - __high2float(mid));
+        w3[0] = *reinterpret_cast<const uint32_t*>(&hi);
+        w3[1] = *reinterpret_cast<const uint32_t*>(&mid);
+        w3[2] = *reinterpret_cast<const uint32_t*>(&lo);
+        const int off = (j >> 3) * TP * 128 + row * 128 +
+                        (((j & 7) ^ (row & 7)) << 4) + 4 * q4;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          *reinterpret_cast<uint32_t*>(s_p + c * Sm::p_bytes + off) = w3[c];
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        z += __shfl_xor_sync(0xffffffffu, z, o);
-      const bool live = pix0 + p < P;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) row[lane + 32 * u] = live ? val[u] / z : 0.f;
     }
-    __syncthreads();
+    fence_proxy_async();
+    named_sync(1, SA_CONS);
 
-    // acc[l][c] += P[l][p] * v[p][c] over the tile's live pixels
-    const int n_live = min(T, P - pix0);
-    for (int p = 0; p < n_live; ++p) {
-      const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(
-          vb + (size_t)(pix0 + p) * CH + 2 * cp);
-      const float v0 = __bfloat162float(v2.x);
-      const float v1 = __bfloat162float(v2.y);
-      const float* prow = S + p * SLD + 64 * lh;
+    // 4. P^T . v on the tensor cores, hi, mid, lo per 16 pixels
+    mbar_wait(&v_full[s], ph);
+    const unsigned char* vt = s_v + s * V_BYTES;
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float4 pr = *reinterpret_cast<const float4*>(prow + 4 * i);
-        acc[4 * i + 0][0] = fmaf(pr.x, v0, acc[4 * i + 0][0]);
-        acc[4 * i + 0][1] = fmaf(pr.x, v1, acc[4 * i + 0][1]);
-        acc[4 * i + 1][0] = fmaf(pr.y, v0, acc[4 * i + 1][0]);
-        acc[4 * i + 1][1] = fmaf(pr.y, v1, acc[4 * i + 1][1]);
-        acc[4 * i + 2][0] = fmaf(pr.z, v0, acc[4 * i + 2][0]);
-        acc[4 * i + 2][1] = fmaf(pr.z, v1, acc[4 * i + 2][1]);
-        acc[4 * i + 3][0] = fmaf(pr.w, v0, acc[4 * i + 3][0]);
-        acc[4 * i + 3][1] = fmaf(pr.w, v1, acc[4 * i + 3][1]);
-      }
+    for (int st = 0; st < TP / 16; ++st) {
+      const uint64_t db = desc128(vt + 2048 * st, TP * 128, 1024);
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          wgmma<CHH, 1, 1>(
+              o[t],
+              desc128(s_p + c * Sm::p_bytes + t * TP * 128 + 2048 * st,
+                      TP * 128, 1024),
+              db, 1);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(&v_empty[s]);
   }
-
-  // this block's partial sum part[b][g][l][c]
-  float* pb = part + ((size_t)b * G + g) * L * CH;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int l = 64 * lh + i;
-    if (l < L)
-      *reinterpret_cast<float2*>(pb + (size_t)l * CH + 2 * cp) =
-          make_float2(acc[i][0], acc[i][1]);
-  }
+  for (int t = 0; t < MT; ++t) fence_regs(o[t]);
+
+  // this block's partial sum part[b][g][l][half*128 + c]
+  float* pb = part + ((size_t)b * G + g) * L * CH + CHH * half;
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int l = 64 * t + 16 * warp + (lane >> 2) + 8 * h;
+      if (l >= L) continue;
+#pragma unroll
+      for (int j = 0; j < CHH / 8; ++j)
+        *reinterpret_cast<float2*>(pb + (size_t)l * CH + 8 * j + 2 * q4) =
+            make_float2(o[t][4 * j + 2 * h], o[t][4 * j + 2 * h + 1]);
+    }
 }
 
 // out[b][l][c] = sum over g = 0 .. G-1, in that order, of part[b][g][l][c].
@@ -218,29 +301,87 @@ __global__ void slot_attn_reduce_kernel(const float* __restrict__ part,
   out[e] = s;
 }
 
+// cuTensorMapEncodeTiled, found through the runtime (no link to libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult qres;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &qres) == cudaSuccess &&
+        qres == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map of a [B, rows, 256] bf16 tensor; boxes of 64 channels x
+// box_rows rows of one batch element, 128-byte swizzle, zeros outside.
+bool make_map(CUtensorMap* map, const void* base, int B, int rows,
+              int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)CH, (cuuint64_t)rows,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)CH * 2,
+                                 (cuuint64_t)rows * CH * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NQ>
+cudaError_t launch_partial(const CUtensorMap& qm, const CUtensorMap& km,
+                           const CUtensorMap& vm, float* part, int B, int L,
+                           int P, int G, cudaStream_t s) {
+  const size_t smem = SaSmem<NQ>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      slot_attn_partial_kernel<NQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  slot_attn_partial_kernel<NQ><<<dim3(G, 2, B), SA_THREADS, smem, s>>>(
+      qm, km, vm, part, L, P, (P + TP - 1) / TP);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Pixels per tile of pass 1 (the wrapper sizes the partial-sum buffer).
-extern "C" int sa_tile_pixels() { return T; }
+// Dynamic shared memory of pass 1 for L <= 64 (nq = 64) or L <= 128.
+extern "C" int sa_smem_bytes(int nq) {
+  return nq == 64 ? (int)SaSmem<64>::bytes : (int)SaSmem<128>::bytes;
+}
 
-// q [B, L, 256], k and v [B, P, 256] bf16; out [B, L, 256] f32; part
-// [B, G, L, 256] f32 scratch, 1 <= G <= ceil(P / T).  Launches both passes
-// on `stream`; returns cudaGetLastError() as an int (0 = launched).
+// q [B, L, 256], k and v [B, P, 256] bf16, 16-byte aligned; out [B, L, 256]
+// f32; part [B, G, L, 256] f32 scratch, 1 <= G <= ceil(P / 64).  Launches
+// both passes on `stream`; returns cudaGetLastError() as an int (0 =
+// launched; cudaErrorInvalidValue for a shape it does not take or a tensor
+// map the driver refuses).
 extern "C" int sa_forward_bf16(const void* q, const void* k, const void* v,
                                void* out, void* part, int B, int L, int P,
                                int G, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      slot_attn_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (P + T - 1) / T;
-  slot_attn_partial_kernel<<<dim3(G, B), NT, kSmemBytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(part), L, P,
-      n_tiles);
-  err = cudaGetLastError();
+  if (L < 1 || L > 128 || P < 1 || G < 1 || G > (P + TP - 1) / TP)
+    return (int)cudaErrorInvalidValue;
+  const int nq = L <= 64 ? 64 : 128;
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, B, L, nq) || !make_map(&km, k, B, P, TP) ||
+      !make_map(&vm, v, B, P, TP))
+    return (int)cudaErrorInvalidValue;
+  float* pt = static_cast<float*>(part);
+  cudaError_t err = nq == 64 ? launch_partial<64>(qm, km, vm, pt, B, L, P, G, s)
+                             : launch_partial<128>(qm, km, vm, pt, B, L, P, G,
+                                                   s);
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)B * L * CH;
   slot_attn_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(

@@ -3,8 +3,9 @@
 Each library is one ``csrc/*.cu`` source with a plain C interface, compiled
 with ``nvcc`` for ``sm_90a`` into a shared library at first use, under
 ``slotvps_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``.  A library's file name carries a hash of its source and flags,
-so an edited source is rebuilt.  Nothing is compiled or loaded at import
+``ctypes``.  A library's file name carries a hash of its source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source is
+rebuilt.  Nothing is compiled or loaded at import
 time.
 """
 
@@ -46,9 +47,12 @@ class KernelLibrary:
         self.source = _PKG / "csrc" / f"{name}.cu"
         self._declare = declare
         self._lib: Optional[ctypes.CDLL] = None
+        self.ptxas = ""   # ptxas' report of the last verbose build
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
+        text = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
+        digest = hashlib.sha256(text
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"{self.name}_{digest[:12]}.so"
 
@@ -73,8 +77,9 @@ class KernelLibrary:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"({proc.returncode}):\n{proc.stdout}\n"
                                f"{proc.stderr}")
-        if verbose and (proc.stdout or proc.stderr):
-            print(proc.stdout + proc.stderr, end="")
+        if verbose:
+            self.ptxas = proc.stdout + proc.stderr
+            print(self.ptxas, end="")
         os.replace(tmp, path)
         return path, dt
 

@@ -3,8 +3,10 @@
 ``csrc/deform_conv.cu`` is built and loaded by :class:`KernelLibrary`
 (``ops/cuda/build.py``: nvcc for ``sm_90a`` at first use, ctypes).  It has
 four entry points, two per compute dtype: ``dcn_forward_f32`` (f32 FMA),
-``dcn_forward_bf16`` (bf16 tensor cores, f32 accumulation, the bf16 Pallas
-kernel's rounding points, an f32 or a bf16 output), and the backward
+``dcn_forward_bf16`` (the gather on producer warps, the product on wgmma
+with f32 accumulation, the bf16 Pallas kernel's rounding points, an f32 or
+a bf16 output; its launch geometry is :func:`bf16_forward_geometry`), and
+the backward
 ``dcn_backward_f32`` / ``dcn_backward_bf16`` (dx, doff and dW, each summed
 in a fixed order: the same on every run).
 
@@ -26,6 +28,7 @@ On CPU tensors both wrappers run the plain versions
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,12 +40,14 @@ from slotvps_tpu_torch.ops.deform_conv import (deform_conv2d,
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dcn_forward_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    lib.dcn_forward_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.dcn_forward_bf16.argtypes = [p, p, p, p, p] + [i] * 10 + [p]
     for fn in (lib.dcn_backward_f32, lib.dcn_backward_bf16):
         fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     for fn in (lib.dcn_forward_f32, lib.dcn_forward_bf16,
                lib.dcn_backward_f32, lib.dcn_backward_bf16):
         fn.restype = i
+    lib.dcn_forward_bf16_smem.argtypes = [i]
+    lib.dcn_forward_bf16_smem.restype = i
     lib.dcn_error_string.argtypes = [i]
     lib.dcn_error_string.restype = ctypes.c_char_p
 
@@ -53,6 +58,48 @@ _KEY = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 # blocks the dW pass aims to put on the card (132 SMs, a few blocks each)
 _DW_TARGET_BLOCKS = 528
 _DW_TILE, _DW_STEP = 64, 32   # TM = TN, KP of csrc/deform_conv.cu
+# the bf16 forward's pixel tiles (rows, columns), largest first: at most
+# 64 pixels, the wgmma tile's rows (FM of csrc/deform_conv.cu)
+_FWD_TILES = ((4, 16), (4, 8), (2, 8))
+_FWD_CHUNK = 64               # input channels per chunk (FK)
+
+
+class Bf16Geometry(NamedTuple):
+    """Launch geometry of ``dcn_forward_bf16`` for one image."""
+    tile_h: int
+    tile_w: int
+    n_tile: int        # output channels per block: 64, 128 or 256
+    n_ctiles: int      # output-channel tiles: ceil(Cout / n_tile)
+    blocks: int        # blocks per image
+
+    def wimg_elems(self, c_in: int) -> int:
+        """bf16 elements of the kernel's weight image."""
+        return self.n_ctiles * 9 * -(-c_in // _FWD_CHUNK) * self.n_tile * 64
+
+
+def bf16_forward_geometry(h: int, w: int, c_out: int,
+                          n_sm: int) -> Bf16Geometry:
+    """The bf16 forward's tile for an H x W image with Cout outputs on a
+    card of ``n_sm`` SMs: all of Cout (up to 256) per block, so each sample
+    is gathered once, and the largest pixel tile that still puts ``n_sm``
+    blocks on the card; where even the smallest tile does not, Cout is
+    split in halves (each split gathers the samples once more) until it
+    does or the tile has 64 channels.  A function of the image's shape and
+    the card, never of the batch, so an image's output is the same alone
+    and in a batch."""
+    def make(th, tw, nt):
+        nct = -(-c_out // nt)
+        return Bf16Geometry(th, tw, nt, nct,
+                            -(-h // th) * -(-w // tw) * nct)
+
+    n_tile = 64 if c_out <= 64 else 128 if c_out <= 128 else 256
+    for th, tw in _FWD_TILES:
+        geo = make(th, tw, n_tile)
+        if geo.blocks >= n_sm:
+            return geo
+    while geo.blocks < n_sm and geo.n_tile > 64:
+        geo = make(geo.tile_h, geo.tile_w, geo.n_tile // 2)
+    return geo
 
 
 def _check(name, x, offset, weight, halo, compute_dtype, g=None):
@@ -108,16 +155,27 @@ def _forward_kernel(x, offset, weight, halo, compute_dtype):
     stream = torch.cuda.current_stream(dev).cuda_stream
     if compute_dtype == torch.float32:
         out = torch.empty((b, h, w, c_out), dtype=torch.float32, device=dev)
-        entry, args = "dcn_forward_f32", ()
+        with torch.cuda.device(dev):
+            rc = lib.dcn_forward_f32(xc.data_ptr(), off.data_ptr(),
+                                     wc.data_ptr(), out.data_ptr(), b, h, w,
+                                     c_in, c_out, int(halo), stream)
+        entry = "dcn_forward_f32"
     else:
         out_dtype = (torch.float32 if x.dtype == torch.float32
                      else torch.bfloat16)
         out = torch.empty((b, h, w, c_out), dtype=out_dtype, device=dev)
-        entry, args = "dcn_forward_bf16", (int(out_dtype == torch.float32),)
-    with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(xc.data_ptr(), off.data_ptr(),
-                                 wc.data_ptr(), out.data_ptr(), *args,
-                                 b, h, w, c_in, c_out, int(halo), stream)
+        geo = bf16_forward_geometry(
+            h, w, c_out,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        wimg = torch.empty((geo.wimg_elems(c_in),), dtype=torch.bfloat16,
+                           device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.dcn_forward_bf16(
+                xc.data_ptr(), off.data_ptr(), wc.data_ptr(),
+                wimg.data_ptr(), out.data_ptr(),
+                int(out_dtype == torch.float32), b, h, w, c_in, c_out,
+                int(halo), geo.tile_h, geo.tile_w, geo.n_tile, stream)
+        entry = "dcn_forward_bf16"
     _raise_on(lib, entry, rc)
     key = _KEY[compute_dtype]
     if compute_dtype == torch.bfloat16 and out.dtype == torch.float32:

@@ -6,7 +6,7 @@ of its plain version, :func:`slotvps_tpu_torch.ops.slot_attention.
 slot_attention`.  On CPU tensors it runs the plain version; on CUDA tensors
 it launches the kernel or raises — there is no fallback.  Its contract on
 the card: bf16 q [B, L, 256] with 1 <= L <= 128, bf16 k and v [B, P, 256];
-it returns f32 [B, L, 256].
+it returns f32 [B, L, 256].  Its launch geometry is :func:`sa_grid`.
 """
 
 from __future__ import annotations
@@ -20,14 +20,25 @@ from slotvps_tpu_torch.ops.slot_attention import slot_attention
 
 MAX_SLOTS = 128
 CHANNELS = 256
+TILE_PIXELS = 64      # pixels per tile of pass 1 (TP of the source)
+
+
+def sa_grid(b: int, n_pix: int, n_sm: int) -> tuple:
+    """Pass 1's grid (G, 2, B): G runs of 64-pixel tiles, each taken by two
+    blocks (one per half of the channels), so that G*2 blocks about fill a
+    card of ``n_sm`` SMs for one image.  G is a function of P and the card
+    only: the partial sums, and so the result, of an image are the same
+    alone and in a batch."""
+    n_tiles = -(-n_pix // TILE_PIXELS)
+    return (min(n_tiles, max(1, n_sm // 2)), 2, b)
 
 
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sa_forward_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.sa_forward_bf16.restype = i
-    lib.sa_tile_pixels.argtypes = []
-    lib.sa_tile_pixels.restype = i
+    lib.sa_smem_bytes.argtypes = [i]
+    lib.sa_smem_bytes.restype = i
     lib.sa_error_string.argtypes = [i]
     lib.sa_error_string.restype = ctypes.c_char_p
 
@@ -69,9 +80,9 @@ def slot_attention_hopper(q: torch.Tensor, k: torch.Tensor,
                          f"L = {n_slots}, P = {n_pix}")
 
     lib = LIBRARY.load()
-    n_tiles = -(-n_pix // lib.sa_tile_pixels())
-    n_runs = min(n_tiles,
-                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_runs = sa_grid(
+        b, n_pix,
+        torch.cuda.get_device_properties(dev).multi_processor_count)[0]
     out = torch.empty((b, n_slots, c), dtype=torch.float32, device=dev)
     part = torch.empty((b, n_runs, n_slots, c), dtype=torch.float32,
                        device=dev)

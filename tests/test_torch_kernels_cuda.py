@@ -1,10 +1,12 @@
 """The Hopper kernels against their plain PyTorch versions, on the card:
 the DCN kernel in f32 and bf16 (forward, the bf16 forward's f32 output,
-the backward and its autograd Function), the five fused-postprocess
+the backward and its autograd Function; the bf16 forward at the largest
+level and its batch invariance), the five fused-postprocess
 kernels (theta, claim, argmax with and without its runner-up map, repair,
 hist, sseg), their K-minor entries (theta, claim and argmax-areas on
-[h, w, K] masks), the claim-scan kernel and the slot-attention kernel;
-and BatchedVideoPipeline against streaming on the bf16 kernel path.
+[h, w, K] masks), the claim-scan kernel and the slot-attention kernel
+(and its batch invariance); and BatchedVideoPipeline against streaming
+on the bf16 kernel path.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the tests' conftest helpers, so it also runs on a
@@ -100,6 +102,112 @@ def test_bf16_kernel_matches_plain(cuda_device, shape):
         before, bfloat16=before["bfloat16"] + 1)
     err = float((out.float() - ref.float()).abs().max())
     assert err <= 1e-2 * float(ref.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_at_the_largest_level(cuda_device):
+    """P2 of a 1024x2048 frame, 256 -> 256, the whole 256x512 level at
+    B = 1: the 64-pixel tile with all 256 output channels per block."""
+    x, off, wt = (t.to(torch.bfloat16) for t in
+                  _case(cuda_device, 1, 256, 512, 256, 256, 2))
+    with torch.no_grad():
+        out = deform_conv2d_hopper(x, off, wt, 2)
+        ref = deform_conv2d(x, off, wt, padding=1, max_displacement=2,
+                            compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("io_dtype", [torch.bfloat16, torch.float32])
+def test_bf16_kernel_is_batch_invariant(cuda_device, io_dtype):
+    """At a ragged shape (13x70 pixels, Cin and Cout 20), in both output
+    types: each image of a batch of 2 gets the bits it gets alone, and two
+    runs are equal."""
+    x, off, wt = (t.to(io_dtype) for t in
+                  _case(cuda_device, 2, 13, 70, 20, 20, 3))
+
+    def kern(xs, offs):
+        return deform_conv2d_hopper(xs, offs, wt, 3,
+                                    compute_dtype=torch.bfloat16)
+
+    with torch.no_grad():
+        both, again = kern(x, off), kern(x, off)
+        alone = [kern(x[i:i + 1].contiguous(), off[i:i + 1].contiguous())
+                 for i in range(2)]
+    torch.cuda.synchronize()
+    assert both.dtype == io_dtype
+    assert torch.equal(both, again)
+    for i in range(2):
+        assert torch.equal(both[i:i + 1], alone[i])
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_is_the_same_under_another_tile(cuda_device,
+                                                    monkeypatch):
+    """The sum order of an output does not depend on the block that
+    computes it: a 64x128 image, 256 -> 256, at its own tile (4x8 pixels,
+    all 256 channels a block) and at 2x8 pixels with 64 channels a block
+    gives the same bits."""
+    from slotvps_tpu_torch.ops.cuda import deform_conv as hdc
+
+    x, off, wt = (t.to(torch.bfloat16) for t in
+                  _case(cuda_device, 1, 64, 128, 256, 256, 4))
+    with torch.no_grad():
+        own = deform_conv2d_hopper(x, off, wt, 4)
+        monkeypatch.setattr(
+            hdc, "bf16_forward_geometry",
+            lambda h, w, c_out, n_sm: hdc.Bf16Geometry(
+                2, 8, 64, -(-c_out // 64), 0))
+        other = deform_conv2d_hopper(x, off, wt, 4)
+    torch.cuda.synchronize()
+    assert hdc.bf16_forward_geometry(64, 128, 256, 132).n_tile == 64
+    assert torch.equal(own, other)
+
+
+def _corner_ordered_samples(x, off, halo):
+    """Every tap's bf16 samples as the bf16 kernels define them: the f32
+    sum, in corner order 0..3, of bf16(corner weight) x bf16 input (each
+    product exact in f32), rounded to bf16.  Returns [B, H, W, 9, Cin]."""
+    from slotvps_tpu_torch.ops.deform_conv import _tap_geometry
+
+    b, h, w, c = x.shape
+    flat = x.to(torch.bfloat16).float().reshape(b, h * w, c)
+    taps = []
+    for k in range(9):
+        y0, x0, fy, fx, valid, _, _ = _tap_geometry(off, k, h, w, halo)
+        v = torch.zeros((b, h, w, c), device=x.device)
+        for j in range(4):
+            cy, cx = y0 + (j >> 1), x0 + (j & 1)
+            inside = valid & (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
+            m = (fy if j >> 1 else 1 - fy) * (fx if j & 1 else 1 - fx)
+            m = torch.where(inside, m, 0.0).to(torch.bfloat16).float()
+            idx = (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).reshape(
+                b, h * w, 1).expand(-1, -1, c)
+            vals = torch.gather(flat, 1, idx).reshape(b, h, w, c)
+            v = v + m[..., None] * torch.where(inside[..., None], vals, 0.0)
+        taps.append(v.to(torch.bfloat16))
+    return torch.stack(taps, dim=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in", [16, 20])   # 16-byte corner loads, and not
+def test_bf16_samples_are_corner_ordered_sums(cuda_device, c_in):
+    """With weights that copy sample (tap k, channel c) to output channel
+    k*Cin + c, the bf16 forward's output is its samples: equal bit for bit
+    to the corner-ordered f32 sums, rounded to bf16."""
+    x, off, _ = _case(cuda_device, 2, 13, 70, c_in, 1, 3)
+    wt = torch.zeros((3, 3, c_in, 9 * c_in), device=cuda_device)
+    for k in range(9):
+        wt[k // 3, k % 3, :, k * c_in:(k + 1) * c_in] = torch.eye(
+            c_in, device=cuda_device)
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        out = deform_conv2d_hopper(xb, off, wt.to(torch.bfloat16), 3)
+    ref = _corner_ordered_samples(xb, off, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(out.reshape(ref.shape), ref)
 
 
 @pytest.mark.cuda
@@ -210,6 +318,30 @@ def test_slot_attention_kernel_matches_plain(cuda_device, shape):
     err = float((out - ref).abs().max())
     assert err <= 1e-4 * float(ref.abs().max()), err
     assert torch.equal(out, again)   # a fixed order of sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pix", [4096, 4133])   # 64-pixel tiles, and not
+@pytest.mark.parametrize("n_slots", [100, 128])
+def test_slot_attention_tiles_and_batch(cuda_device, n_slots, n_pix):
+    """L = 100 and 128 with P a multiple of the kernel's pixel tile and
+    not, at B = 2: within 1e-4 of the plain version, and each batch
+    element's output the bits it gets alone."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device)
+               .to(torch.bfloat16) for s in ((2, n_slots, 256),
+                                             (2, n_pix, 256),
+                                             (2, n_pix, 256)))
+    out = slot_attention_hopper(q, k, v)
+    ref = slot_attention(q, k, v)
+    alone = [slot_attention_hopper(q[i:i + 1].contiguous(),
+                                   k[i:i + 1].contiguous(),
+                                   v[i:i + 1].contiguous()) for i in range(2)]
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+    for i in range(2):
+        assert torch.equal(out[i:i + 1], alone[i])
 
 
 @pytest.mark.cuda
