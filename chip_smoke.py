@@ -10,8 +10,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      precision setup (no TF32, bf16 products reduced in f32).
   2. build    — compile the four kernel libraries from
      slotvps_tpu_torch/csrc/ (one nvcc each, started together); one line
-     per wgmma kernel (the bf16 DCN forward, slot attention's pass 1) with
-     its registers, dynamic shared memory and spills from ptxas.
+     per wgmma kernel (the bf16 DCN forward, the bf16 DCN backward's data
+     and dW passes, slot attention's pass 1) with its registers, dynamic
+     shared memory and spills from ptxas; the backward's shared memory as
+     the wrapper states it against the library's.
   3. kernels  — each kernel against its plain PyTorch version on the card,
      with CUDA-event times of both and the bound: the DCN kernel in f32 and
      in bf16 at the 12 (tower block, FPN level) shapes of a 1024x2048
@@ -28,7 +30,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      clamp some taps: the DCN forward kernel on the f32 model's bf16 route
      (f32 x and offsets, bf16 compute, f32 output), and the DCN backward
      kernel in f32 and in bf16 against the plain backward (dx, doff and dW
-     each equal in two runs).
+     each equal in two runs), with the profiler's device time of each of
+     its passes (data, dx, dW, reduction, the weight image, the wrapper's
+     casts) and the host's time to enqueue a call, summed over the 12
+     shapes.
   4. slice    — r50_fpn_slotvps at full width and 1024x2048, the JAX
      package's tuned stack with the slot-attention kernel (bf16, bf16 DCN
      kernel, fused_sseg, fused postprocess, retriever_impl="pallas"),
@@ -324,12 +329,19 @@ def phase_build():
     for row in wgmma_kernel_resources(deform_conv.LIBRARY,
                                       slot_attention.LIBRARY):
         log("build", json.dumps(row))
+    check_backward_smem()
     return {name: secs for name, (_, secs) in built.items()}
 
 
-# (kernel in ptxas' mangled names, C entry of its dynamic shared memory)
-WGMMA_KERNELS = (("dcn_fwd_bf16_kernel", "dcn_forward_bf16_smem"),
-                 ("slot_attn_partial_kernel", "sa_smem_bytes"))
+# (kernel in ptxas' mangled names, its dynamic shared memory at a template
+# width from the library's C entry: the backward's data pass at its largest
+# Cout, 256)
+WGMMA_KERNELS = (
+    ("dcn_fwd_bf16_kernel", lambda lib, n: lib.dcn_forward_bf16_smem(n)),
+    ("dcn_bwd_data_bf16_kernel",
+     lambda lib, n: lib.dcn_bwd_data_bf16_smem(n, 256)),
+    ("dcn_bwd_dw_bf16_kernel", lambda lib, n: lib.dcn_bwd_dw_bf16_smem(n)),
+    ("slot_attn_partial_kernel", lambda lib, n: lib.sa_smem_bytes(n)))
 
 
 def wgmma_kernel_resources(*libs):
@@ -363,12 +375,30 @@ def wgmma_kernel_resources(*libs):
                     kernel=f"{kern[0]}<{width}{', ' + out if out else ''}>",
                     registers=int(m.group(1)), spill_stores=st,
                     spill_loads=ld, stack_bytes=stack,
-                    dynamic_smem_bytes=getattr(handle, kern[1])(width)))
+                    dynamic_smem_bytes=kern[1](handle, width)))
                 name = None
-    if len(rows) != 8:
-        raise AssertionError(f"ptxas reported {len(rows)} wgmma kernel "
-                             "instances, not 8 (6 DCN, 2 slot attention)")
+    if len(rows) != 14:
+        raise AssertionError(
+            f"ptxas reported {len(rows)} wgmma kernel instances, not 14 (6 "
+            "DCN forward, 3 + 3 DCN backward, 2 slot attention)")
     return rows
+
+
+def check_backward_smem():
+    """The wrapper's statement of the bf16 backward's shared memory (its
+    geometry helper, tested on the CPU) equals the library's."""
+    from slotvps_tpu_torch.ops.cuda import deform_conv as dc
+
+    lib = dc.LIBRARY.load()
+    for n in (64, 128, 256):
+        for c_out in (20, 24, 128, 256):
+            got = (lib.dcn_bwd_data_bf16_smem(n, c_out),
+                   lib.dcn_bwd_dw_bf16_smem(n))
+            want = (dc.bwd_data_smem(n, c_out), dc.bwd_dw_smem(n))
+            if got != want:
+                raise AssertionError(f"bf16 backward shared memory at width "
+                                     f"{n}, Cout {c_out}: library {got}, "
+                                     f"wrapper {want}")
 
 
 def _cuda_ms(fn, n=10, warmup=2):
@@ -469,6 +499,7 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
     rtol = DCN_RTOL[dtype]
     size = torch.finfo(dtype).bits // 8
     rows = []
+    passes = {}
     for li, (h, w, halo) in enumerate(levels):
         for bi, (cin, cout) in enumerate(blocks):
             x, off, wt = dcn_case(dev, h, w, cin, cout, halo,
@@ -512,6 +543,12 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
             if timed:
                 row["ms"] = _cuda_ms(kern)
                 row["plain_ms"] = _cuda_ms(plain, n=3, warmup=1)
+                row["pass_ms"] = _bwd_pass_ms(kern)
+                row["host_ms"] = _host_ms(kern)
+                for name, ms in row["pass_ms"].items():
+                    passes[name] = passes.get(name, 0.0) + ms
+                passes["host_enqueue"] = (passes.get("host_enqueue", 0.0)
+                                          + row["host_ms"])
             log("kernels", json.dumps(row))
             if not ok:
                 raise AssertionError(
@@ -519,7 +556,54 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
                     f"errors {errs} vs {rtol} x {scales}, or dx, doff or dW "
                     "differs from run to run")
             rows.append(row)
+    if passes:
+        host = passes.pop("host_enqueue")
+        log("kernels", json.dumps({
+            "dcn_backward_passes": str(dtype), "shapes": len(rows),
+            "profiler_device_ms": passes,
+            "total_ms": sum(passes.values()),
+            "cuda_event_ms": sum(r["ms"] for r in rows),
+            "host_enqueue_ms": host}))
     return rows
+
+
+def _host_ms(fn, n=5):
+    """Host ms to enqueue one call of ``fn`` (the mean of ``n`` calls, the
+    card left to run behind): where it comes near the CUDA-event time, the
+    call is bound by the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / n
+
+
+# the backward's kernels by pass (substrings of their names)
+BWD_PASSES = (("dcn_bwd_data", "data"), ("dcn_bwd_dx", "dx"),
+              ("dcn_bwd_dw_bf16_kernel", "dW"),
+              ("dcn_bwd_weight_kernel", "dW"),
+              ("dcn_bwd_reduce_kernel", "reduction"),
+              ("dcn_wimg_kernel", "weight_image"))
+
+
+def _bwd_pass_ms(fn):
+    """Device ms of one call of ``fn`` (the backward wrapper) by pass,
+    from torch.profiler; "other" is every other kernel of the call: the
+    wrapper's casts and copies of x, g and W."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, (ms, _) in _device_time_by_kernel(prof).items():
+        part = next((p for key, p in BWD_PASSES if key in name), "other")
+        out[part] = out.get(part, 0.0) + ms
+    return out
 
 
 def _bwd_bound(rows, dtype, parts=False):
@@ -1397,8 +1481,9 @@ def phase_train(dev, steps=TRAIN_STEPS, size=(TRAIN_H, TRAIN_W)):
     for name, (ms, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:14]:
         log("train", f"  {ms:9.3f} ms {n:5d} x {name[:90]}")
-    for kern in ("dcn_fwd_bf16_kernel", "dcn_bwd_data_kernel",
-                 "dcn_bwd_weight_kernel", "dcn_bwd_reduce_kernel"):
+    for kern in ("dcn_fwd_bf16_kernel", "dcn_bwd_data_bf16_kernel",
+                 "dcn_bwd_dx_bf16_kernel", "dcn_bwd_dw_bf16_kernel",
+                 "dcn_bwd_reduce_kernel"):
         hits = [(ms, n) for name, (ms, n) in by_name.items() if kern in name]
         if hits:
             ms, n = map(sum, zip(*hits))
@@ -2058,13 +2143,17 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, serving_rows,
                         ("dcn_backward_hopper_bf16", torch.bfloat16)):
         per_shape = bwd_rows[dtype]
         b_ms, b_by = _bwd_bound(per_shape, dtype)
+        pass_ms = {}
+        for r in per_shape:
+            for part, ms in r["pass_ms"].items():
+                pass_ms[part] = pass_ms.get(part, 0.0) + ms
         rows.append(dict(
             name=name, max_abs_err=max(r["max_abs_err"] for r in per_shape),
             ms=sum(r["ms"] for r in per_shape),
             plain_ms=sum(r["plain_ms"] for r in per_shape),
             bound_ms=b_ms, bound_by=b_by,
             bound_parts_ms=_bwd_bound(per_shape, dtype, parts=True),
-            build_s=build_s["deform_conv"]))
+            pass_ms=pass_ms, build_s=build_s["deform_conv"]))
     for name, row in list(pp_rows.items()) + [("sseg_hopper", sseg_row)]:
         rows.append(dict(
             name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],

@@ -5,14 +5,18 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
     python3 kernel_variants.py slot_attention
     python3 kernel_variants.py deform_conv
+    python3 kernel_variants.py dcn_backward
 
 Each variant is ``slotvps_tpu_torch/csrc/<kernel>.cu`` with a few text
 replacements (VARIANTS below), compiled with the port's nvcc flags into a
 temporary directory and loaded with ctypes.  Slot attention runs at the
 decoder's two largest pixel counts (q [1, 100, 256], k and v [1, P, 256]
 bf16), the bf16 DCN forward at three shapes of a 1024x2048 frame (bf16 in
-and out).  One JSON line per (shape, variant): CUDA-event ms (mean of 20
-calls after 3) and the error relative to the plain version.  The variants
+and out), the bf16 DCN backward (``dcn_backward``: the same source, its
+passes and their parts) at P2 and P4 of the 800x1600 training crop, B = 2,
+256 -> 256.  One JSON line per (shape, variant): CUDA-event ms (mean of 20
+calls after 3; 10 after 2 for the backward) and the error relative to the
+plain version (the backward: of dx, doff and dW each).  The variants
 that skip work give wrong results on purpose: they tell where the time
 goes.
 """
@@ -32,7 +36,8 @@ import torch
 from slotvps_tpu_torch.ops.cuda import deform_conv as dc
 from slotvps_tpu_torch.ops.cuda import slot_attention as sa
 from slotvps_tpu_torch.ops.cuda.build import NVCC_FLAGS, _nvcc
-from slotvps_tpu_torch.ops.deform_conv import deform_conv2d
+from slotvps_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                               deform_conv2d_backward)
 from slotvps_tpu_torch.ops.slot_attention import slot_attention
 from slotvps_tpu_torch.utils.precision import setup_precision
 
@@ -80,8 +85,10 @@ VARIANTS = {"slot_attention": {
     "no_proxy_fence": [("      fence_proxy_async();\n"
                         "      mbar_arrive(&full[s]);",
                         "      mbar_arrive(&full[s]);")],
-    "no_a_store": [("        *reinterpret_cast<uint4*>(a + p * 128 +",
-                    "        if (v[0] == 12345.f)\n"
+    "no_a_store": [("        const int p = pix[i];\n"
+                    "        *reinterpret_cast<uint4*>(a + p * 128 +",
+                    "        const int p = pix[i];\n"
+                    "        if (v.x == 12345u)\n"
                     "        *reinterpret_cast<uint4*>(a + p * 128 +")],
     # no corner loads: the samples are formed from zeros
     "no_corner_loads": [("if (tp[i].idx[j] < 0 || c >= Cin) continue;",
@@ -90,7 +97,64 @@ VARIANTS = {"slot_attention": {
                   "        if (kk < 0) wgmma<NC, 0, 0>(acc,")],
     "two_stages": [("constexpr int F_STAGES = 4;",
                     "constexpr int F_STAGES = 2;")],
+}, "dcn_backward": {
+    "as_is": [],
+    # whole passes skipped: the time of each pass is as_is minus its row
+    "no_data_pass": [("data pass: ds and doff\n  err = ",
+                      "data pass: ds and doff\n  if (nci < 0) err = ")],
+    "no_dx_pass": [("nci / 32 channels a lane\n  err = ",
+                    "nci / 32 channels a lane\n  if (nci < 0) err = ")],
+    "no_dw_pass": [("  // 4. dW pass: one partial per split\n  err = ",
+                    "  // 4. dW pass: one partial per split\n"
+                    "  if (nc < 0) err = ")],
+    # dx pass: no scan at all (no loads, no sums), the scan without the ds
+    # loads, the scan and loads without the sums
+    "dx_no_scan": [("    for (int e0 = 0; e0 < n_e; e0 += 32) {",
+                    "    for (int e0 = 0; e0 < 0; e0 += 32) {")],
+    "dx_no_ds_loads": [("          if (eh[u] < 0) {\n#pragma unroll\n"
+                        "            for (int t = 0; t < CPL; ++t) d[u][t]",
+                        "          if (eh[u] > -2) {\n#pragma unroll\n"
+                        "            for (int t = 0; t < CPL; ++t) d[u][t]")],
+    "dx_no_sums": [("if (col >= 0 && col < XB_COLS && m != 0.f) {",
+                    "if (col >= 0 && col < XB_COLS && m != 0.f && "
+                    "d[u][0] == 12345.f) {")],
+    # dx pass tiles: 16 input columns a block (twice the sums a warp, a
+    # window 1.5x narrower per column), 4 hits' loads in flight (2 as is)
+    "dx_cols16": [("XB_COLS = 8;", "XB_COLS = 16;")],
+    "dx_u4": [("XB_U = 2;", "XB_U = 4;")],
+    # data pass: the producers' rounds unrolled 2 deep (1 as is)
+    "data_unroll2": [("unroll 1\n      for (int r = 0; r < ROUNDS;",
+                      "unroll 2\n      for (int r = 0; r < ROUNDS;")],
+    # data pass: no x loads for the corner sums, no ds stores, no products
+    "data_no_corner_loads": [("          if (idx[j] >= 0 && c < Cin)\n"
+                              "            u[j] = load8(",
+                              "          if (idx[j] >= 0 && c < 0)\n"
+                              "            u[j] = load8(")],
+    "data_no_ds_store": [("        if (live && c < Cin) {\n"
+                          "          bf16* dst = ds",
+                          "        if (live && c < 0) {\n"
+                          "          bf16* dst = ds")],
+    "data_no_wgmma": [("          wgmma<NCI, 0, 0>(acc,",
+                       "          if (st < 0) wgmma<NCI, 0, 0>(acc,")],
+    # dW pass: no corner loads (samples from zeros), no g copies (the
+    # ring's stale g), no products
+    "dw_no_corner_loads": [("          un[i][j] = load8(x + (img_n + tp[i]",
+                            "          if (c < 0) un[i][j] = "
+                            "load8(x + (img_n + tp[i]")],
+    "dw_no_g_copy": [
+        ("        mbar_arrive_expect_tx(&full[s], n_box * FM * 128);\n"
+         "        for (int bx = 0; bx < n_box; ++bx)",
+         "        mbar_arrive(&full[s]);\n"
+         "        for (int bx = 0; bx < 0; ++bx)")],
+    "dw_no_wgmma": [("        wgmma<NC, 1, 1>(acc,",
+                     "        if (st < 0) wgmma<NC, 1, 1>(acc,")],
 }}
+# kernel variants -> the library whose entry points they load
+SOURCE = {"slot_attention": "slot_attention", "deform_conv": "deform_conv",
+          "dcn_backward": "deform_conv"}
+# (B, H, W, Cin, Cout, halo) of the backward's cases: P2 and P4 of the
+# 800x1600 training crop (the reference and the current frame)
+BWD_SHAPES = ((2, 200, 400, 256, 256, 2), (2, 50, 100, 256, 256, 4))
 
 
 def _sms(dev):
@@ -112,7 +176,7 @@ def _ms(fn, n=20, warmup=3):
 
 def build(tmp: Path, kernel: str, declare) -> dict:
     """name -> loaded library; every variant compiled at once."""
-    base = (CSRC / f"{kernel}.cu").read_text()
+    base = (CSRC / f"{SOURCE[kernel]}.cu").read_text()
     for header in CSRC.glob("*.cuh"):
         shutil.copy(header, tmp)
     procs = {}
@@ -194,6 +258,46 @@ def run_deform_conv(libs, dev, stream):
                               "ms": ms, "rel_err": rel}), flush=True)
 
 
+def run_dcn_backward(libs, dev, stream):
+    for b, h, w, c_in, c_out, halo in BWD_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn((b, h, w, c_in), generator=g, device=dev)
+        off = torch.randn((b, h, w, 18), generator=g, device=dev) * halo
+        wt = torch.randn((3, 3, c_in, c_out), generator=g, device=dev) \
+            / (9 * c_in) ** 0.5
+        gout = torch.randn((b, h, w, c_out), generator=g, device=dev)
+        x, wt, gout = (t.to(torch.bfloat16) for t in (x, wt, gout))
+        ref = deform_conv2d_backward(x, off, wt, gout, halo, torch.bfloat16)
+        geo = dc.bf16_backward_geometry(b, h, w, c_in, c_out, _sms(dev))
+        outs = (torch.empty((b, h, w, c_in), device=dev),
+                torch.empty((b, h, w, 18), device=dev),
+                torch.empty((3, 3, c_in, c_out), device=dev))
+        wimg = torch.empty((geo.wimg_elems(c_out),), dtype=torch.bfloat16,
+                           device=dev)
+        ds = torch.empty((b * h * w * 9 * c_in,), dtype=torch.bfloat16,
+                         device=dev)
+        part = torch.empty((geo.part_elems(c_in, c_out),), device=dev)
+        for name, lib in libs.items():
+            for t in outs:
+                t.zero_()
+
+            def run(lib=lib):
+                rc = lib.dcn_backward_bf16(
+                    x.data_ptr(), off.data_ptr(), wt.data_ptr(),
+                    gout.data_ptr(), wimg.data_ptr(), outs[0].data_ptr(),
+                    outs[1].data_ptr(), ds.data_ptr(), part.data_ptr(),
+                    outs[2].data_ptr(), b, h, w, c_in, c_out, c_out, halo,
+                    geo.tile_h, geo.tile_w, geo.splits, stream)
+                if rc:
+                    raise RuntimeError(lib.dcn_error_string(rc).decode())
+            ms = _ms(run, n=10, warmup=2)
+            rel = {n: float((o - r).abs().max() / r.abs().max())
+                   for n, o, r in zip(("dx", "doff", "dW"), outs, ref)}
+            print(json.dumps({"shape": [b, h, w, c_in, c_out, halo],
+                              "variant": name, "ms": ms, "rel_err": rel}),
+                  flush=True)
+
+
 def main():
     kernel = sys.argv[1] if len(sys.argv) > 1 else "slot_attention"
     if kernel not in VARIANTS:
@@ -203,11 +307,12 @@ def main():
     setup_precision()
     dev = torch.device("cuda")
     mod = sa if kernel == "slot_attention" else dc
+    run = {"slot_attention": run_slot_attention,
+           "deform_conv": run_deform_conv,
+           "dcn_backward": run_dcn_backward}[kernel]
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), kernel, mod._declare)
-        stream = torch.cuda.current_stream().cuda_stream
-        (run_slot_attention if kernel == "slot_attention"
-         else run_deform_conv)(libs, dev, stream)
+        run(libs, dev, torch.cuda.current_stream().cuda_stream)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 // Hopper primitives shared by the port's wgmma kernels (deform_conv.cu,
-// slot_attention.cu): mbarriers, bulk and tensor copies (the TMA unit),
-// the proxy fence, wgmma's shared-memory descriptors and its m64nNk16 bf16
-// products with f32 accumulators.  PTX for sm_90a; nothing here allocates
-// or launches.
+// slot_attention.cu): mbarriers, bulk and tensor copies (the TMA unit) and
+// the driver's tensor-map encoder, the proxy fence, wgmma's shared-memory
+// descriptors and its m64nNk16 bf16 products with f32 accumulators.  PTX
+// for sm_90a; nothing here allocates or launches.
 //
-// Shared-memory operand layout (the one both kernels use): a tile is a
+// Shared-memory operand layout (the one all the kernels use): a tile is a
 // stack of 128-byte rows, each row 64 bf16 of the 16-byte-chunked dimension
 // with its chunk j stored at chunk j ^ (row % 8) (the 128-byte swizzle, as
 // TMA's CU_TENSOR_MAP_SWIZZLE_128B writes it), 8-row groups 1024 bytes
@@ -99,6 +99,41 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// one box of a 4-D tensor map at coordinates (c0 innermost .. c3),
+// completing on `bar`; elements outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, found through the runtime (no link to libcuda);
+// nullptr where the driver does not offer it
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult qres;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &qres) == cudaSuccess &&
+        qres == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 // shared-memory stores of this thread become visible to the async proxy

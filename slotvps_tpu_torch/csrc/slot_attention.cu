@@ -301,32 +301,11 @@ __global__ void slot_attn_reduce_kernel(const float* __restrict__ part,
   out[e] = s;
 }
 
-// cuTensorMapEncodeTiled, found through the runtime (no link to libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult qres;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &qres) == cudaSuccess &&
-        qres == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 3-D map of a [B, rows, 256] bf16 tensor; boxes of 64 channels x
 // box_rows rows of one batch element, 128-byte swizzle, zeros outside.
 bool make_map(CUtensorMap* map, const void* base, int B, int rows,
               int box_rows) {
-  EncodeTiled fn = encode_tiled();
+  hopper::EncodeTiled fn = hopper::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)CH, (cuuint64_t)rows,
                               (cuuint64_t)B};

@@ -8,7 +8,8 @@ with f32 accumulation, the bf16 Pallas kernel's rounding points, an f32 or
 a bf16 output; its launch geometry is :func:`bf16_forward_geometry`), and
 the backward
 ``dcn_backward_f32`` / ``dcn_backward_bf16`` (dx, doff and dW, each summed
-in a fixed order: the same on every run).
+in a fixed order: the same on every run; the bf16 one's data and dW passes
+on wgmma, its launch geometry :func:`bf16_backward_geometry`).
 
 :func:`deform_conv2d_hopper` is the differentiable DCN of the semantic
 tower, the counterpart of the JAX package's ``deform_conv2d_pallas`` with
@@ -28,6 +29,8 @@ On CPU tensors both wrappers run the plain versions
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -41,13 +44,17 @@ def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dcn_forward_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.dcn_forward_bf16.argtypes = [p, p, p, p, p] + [i] * 10 + [p]
-    for fn in (lib.dcn_backward_f32, lib.dcn_backward_bf16):
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.dcn_backward_f32.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.dcn_backward_bf16.argtypes = [p] * 10 + [i] * 10 + [p]
     for fn in (lib.dcn_forward_f32, lib.dcn_forward_bf16,
                lib.dcn_backward_f32, lib.dcn_backward_bf16):
         fn.restype = i
     lib.dcn_forward_bf16_smem.argtypes = [i]
-    lib.dcn_forward_bf16_smem.restype = i
+    lib.dcn_bwd_dw_bf16_smem.argtypes = [i]
+    lib.dcn_bwd_data_bf16_smem.argtypes = [i, i]
+    for fn in (lib.dcn_forward_bf16_smem, lib.dcn_bwd_dw_bf16_smem,
+               lib.dcn_bwd_data_bf16_smem):
+        fn.restype = i
     lib.dcn_error_string.argtypes = [i]
     lib.dcn_error_string.restype = ctypes.c_char_p
 
@@ -55,7 +62,8 @@ def _declare(lib: ctypes.CDLL):
 LIBRARY = KernelLibrary("deform_conv", _declare)
 
 _KEY = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-# blocks the dW pass aims to put on the card (132 SMs, a few blocks each)
+# blocks the f32 dW pass aims to put on the card (132 SMs, a few blocks
+# each)
 _DW_TARGET_BLOCKS = 528
 _DW_TILE, _DW_STEP = 64, 32   # TM = TN, KP of csrc/deform_conv.cu
 # the bf16 forward's pixel tiles (rows, columns), largest first: at most
@@ -100,6 +108,113 @@ def bf16_forward_geometry(h: int, w: int, c_out: int,
     while geo.blocks < n_sm and geo.n_tile > 64:
         geo = make(geo.tile_h, geo.tile_w, geo.n_tile // 2)
     return geo
+
+
+# The bf16 backward (csrc/deform_conv.cu, "bf16 backward on wgmma"): the dW
+# pass's pixel tile (BW_TH x BW_TW) and ring depth, the data pass's ring
+# depth and dsample-tile pad; the least pixels a dW split sums; the shared
+# memory a block may use on the card.
+BWD_DW_TILE = (4, 16)
+_BWD_DW_STAGES, _BWD_DATA_STAGES, _BWD_DATA_PAD = 4, 3, 8
+_BWD_MIN_SPLIT = 128
+MAX_SMEM = 232448
+
+
+def wgmma_width(c: int) -> int:
+    """The wgmma width (64, 128 or 256) that holds ``c`` <= 256 channels."""
+    return 64 if c <= 64 else 128 if c <= 128 else 256
+
+
+def bwd_dw_smem(nc: int) -> int:
+    """Dynamic shared memory of the bf16 dW pass at ``nc`` output channels
+    a block (``bwd_dw_smem_bytes`` of the source): the 1024-byte alignment
+    slack, the ring of sample and g stages, its barriers."""
+    return 1024 + _BWD_DW_STAGES * (_FWD_CHUNK + nc) * 128 \
+        + 2 * _BWD_DW_STAGES * 8
+
+
+def bwd_data_smem(nci: int, c_out: int) -> int:
+    """... and of the bf16 data pass at ``nci`` input channels a block
+    (``bwd_data_smem_bytes``): the g tile, the W^T ring, two dsample tiles,
+    the tile's offsets, the barriers."""
+    n_kb = -(-c_out // 64)
+    return (1024 + n_kb * 64 * 128 + _BWD_DATA_STAGES * nci * 128
+            + 2 * 2 * 64 * (nci + _BWD_DATA_PAD) + 4 * 64 * 18
+            + (1 + _BWD_DATA_STAGES + 4) * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_splits(n_pix: int, c_in: int, n_sm: int) -> int:
+    """Pixel ranges (split K) of the bf16 dW pass: the count S whose grid of
+    9 * ceil(Cin / 64) row tiles x S fills the card's ``n_sm`` SMs in the
+    fewest waves for the work (ceil(rows * S / n_sm) / S least; the smallest
+    such S), each range at least _BWD_MIN_SPLIT pixels.  A function of the
+    pixel count, Cin and the card only, so dW's order of sums is too.  No S
+    beats n_sm / gcd(rows, n_sm), whose waves are all full."""
+    rows = 9 * -(-c_in // 64)
+    best = 1
+    s_max = min(max(1, n_pix // _BWD_MIN_SPLIT), n_sm // math.gcd(rows, n_sm))
+    for s in range(2, s_max + 1):
+        # ceil(rows*s/n_sm)/s < ceil(rows*best/n_sm)/best, exactly
+        if -(-rows * s // n_sm) * best < -(-rows * best // n_sm) * s:
+            best = s
+    return best
+
+
+class BwdGeometry(NamedTuple):
+    """Launch geometry of ``dcn_backward_bf16`` for a batch."""
+    tile_h: int        # the data pass's pixel tile (<= 64 pixels)
+    tile_w: int
+    nci: int           # data pass: input channels a block (all of Cin)
+    nc: int            # dW pass: output channels a block (all of Cout)
+    row_tiles: int     # dW pass: 9 taps x ceil(Cin / 64) channel chunks
+    dw_tiles: int      # dW pass: 4 x 16 pixel tiles over the batch
+    splits: int        # dW pass: pixel ranges, each whole dW tiles
+    data_blocks: int
+
+    @property
+    def dw_blocks(self) -> int:
+        return self.row_tiles * self.splits
+
+    def split_ranges(self) -> list:
+        """The dW tiles [lo, hi) that split s sums (the kernel's rule)."""
+        t, n = self.dw_tiles, self.splits
+        return [(s * t // n, (s + 1) * t // n) for s in range(n)]
+
+    def part_elems(self, c_in: int, c_out: int) -> int:
+        """f32 elements of the dW partials."""
+        return self.splits * 9 * c_in * c_out
+
+    def wimg_elems(self, c_out: int) -> int:
+        """bf16 elements of the data pass's W^T image."""
+        return 9 * -(-c_out // 64) * self.nci * 64
+
+    def smem(self, c_out: int) -> dict:
+        """Dynamic shared memory of each wgmma pass."""
+        return {"data": bwd_data_smem(self.nci, c_out),
+                "dw": bwd_dw_smem(self.nc)}
+
+
+def bf16_backward_geometry(b: int, h: int, w: int, c_in: int, c_out: int,
+                           n_sm: int) -> BwdGeometry:
+    """The bf16 backward's geometry on a card of ``n_sm`` SMs.  Data pass:
+    all of Cin a block and the largest of the forward's pixel tiles that
+    puts ``n_sm`` blocks on the card (a pixel's dsample, corner sums and
+    doff do not depend on the tile).  dW pass: all of Cout a block, so each
+    sample is gathered once; 4 x 16 pixel tiles; :func:`dw_splits` ranges.
+    Cin and Cout up to 256 (one wgmma width)."""
+    if not (1 <= c_in <= 256 and 1 <= c_out <= 256):
+        raise ValueError(f"the bf16 backward takes 1 <= Cin, Cout <= 256; "
+                         f"got Cin={c_in}, Cout={c_out}")
+    for th, tw in _FWD_TILES:
+        blocks = b * -(-h // th) * -(-w // tw)
+        if blocks >= n_sm:
+            break
+    th_w, tw_w = BWD_DW_TILE
+    return BwdGeometry(th, tw, wgmma_width(c_in), wgmma_width(c_out),
+                       9 * -(-c_in // 64),
+                       b * -(-h // th_w) * -(-w // tw_w),
+                       dw_splits(b * h * w, c_in, n_sm), blocks)
 
 
 def _check(name, x, offset, weight, halo, compute_dtype, g=None):
@@ -184,8 +299,8 @@ def _forward_kernel(x, offset, weight, halo, compute_dtype):
     return out.to(x.dtype)
 
 
-def _dw_splits(n_pix: int, c_in: int, c_out: int) -> int:
-    """Pixel ranges of the dW pass: enough blocks to fill the card, each
+def _f32_dw_splits(n_pix: int, c_in: int, c_out: int) -> int:
+    """Pixel ranges of the f32 dW pass: enough blocks to fill the card, each
     range at least one step of pixels.  A function of the shape only, so
     dW's order of sums is fixed."""
     tiles = -(-9 * c_in // _DW_TILE) * -(-c_out // _DW_TILE)
@@ -204,8 +319,11 @@ def dcn_backward_hopper(x: torch.Tensor, offset: torch.Tensor,
     backward kernel's rounding points, each the same on every run.  On the
     card it takes a scratch buffer of dsample, [B*H*W, 9, Cin] in
     ``compute_dtype`` (0.74 GB in bf16 at 2 x 200 x 400 pixels and Cin
-    256).  Each kernel launch (one call: the data, dx, weight and reduction
-    passes) adds one to ``dcn_backward_hopper.launches[dtype name]``."""
+    256), and the dW partials; in bf16 also the W^T image, and Cin, Cout
+    <= 256 (g is copied with rows a multiple of 8 elements apart where Cout
+    is not one).  Each kernel launch (one call: the data, dx, weight and
+    reduction passes) adds one to ``dcn_backward_hopper.launches[dtype
+    name]``."""
     if all(t.device.type == "cpu" for t in (x, offset, weight, g)):
         return deform_conv2d_backward(x, offset, weight, g, halo,
                                       compute_dtype)
@@ -214,25 +332,49 @@ def dcn_backward_hopper(x: torch.Tensor, offset: torch.Tensor,
     dev = x.device
     xc = x.to(compute_dtype).contiguous()
     wc = weight.to(compute_dtype).contiguous()
-    gc = g.to(compute_dtype).contiguous()
     off = offset.float().contiguous()
-    splits = _dw_splits(b * h * w, c_in, c_out)
     dx = torch.empty((b, h, w, c_in), dtype=torch.float32, device=dev)
     doff = torch.empty((b, h, w, 18), dtype=torch.float32, device=dev)
     ds = torch.empty((b * h * w * 9 * c_in,), dtype=compute_dtype, device=dev)
-    part = torch.empty((splits, 9 * c_in, c_out), dtype=torch.float32,
-                       device=dev)
     dw = torch.empty((3, 3, c_in, c_out), dtype=torch.float32, device=dev)
-    entry = ("dcn_backward_f32" if compute_dtype == torch.float32
-             else "dcn_backward_bf16")
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(
-            xc.data_ptr(), off.data_ptr(), wc.data_ptr(), gc.data_ptr(),
-            dx.data_ptr(), doff.data_ptr(), ds.data_ptr(), part.data_ptr(),
-            dw.data_ptr(),
-            b, h, w, c_in, c_out, int(halo), splits, stream)
+    if compute_dtype == torch.float32:
+        gc = g.float().contiguous()
+        splits = _f32_dw_splits(b * h * w, c_in, c_out)
+        part = torch.empty((splits, 9 * c_in, c_out), dtype=torch.float32,
+                           device=dev)
+        entry = "dcn_backward_f32"
+        with torch.cuda.device(dev):
+            rc = lib.dcn_backward_f32(
+                xc.data_ptr(), off.data_ptr(), wc.data_ptr(), gc.data_ptr(),
+                dx.data_ptr(), doff.data_ptr(), ds.data_ptr(),
+                part.data_ptr(), dw.data_ptr(), b, h, w, c_in, c_out,
+                int(halo), splits, stream)
+    else:
+        geo = bf16_backward_geometry(
+            b, h, w, c_in, c_out,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        # g's rows a multiple of 8 elements apart (the TMA unit's rule)
+        g_stride = -(-c_out // 8) * 8
+        if g_stride == c_out:
+            gc = g.to(torch.bfloat16).contiguous()
+        else:
+            gc = torch.zeros((b, h, w, g_stride), dtype=torch.bfloat16,
+                             device=dev)
+            gc[..., :c_out] = g
+        wimg = torch.empty((geo.wimg_elems(c_out),), dtype=torch.bfloat16,
+                           device=dev)
+        part = torch.empty((geo.part_elems(c_in, c_out),),
+                           dtype=torch.float32, device=dev)
+        entry = "dcn_backward_bf16"
+        with torch.cuda.device(dev):
+            rc = lib.dcn_backward_bf16(
+                xc.data_ptr(), off.data_ptr(), wc.data_ptr(), gc.data_ptr(),
+                wimg.data_ptr(), dx.data_ptr(), doff.data_ptr(),
+                ds.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, w, c_in,
+                c_out, g_stride, int(halo), geo.tile_h, geo.tile_w,
+                geo.splits, stream)
     _raise_on(lib, entry, rc)
     dcn_backward_hopper.launches[_KEY[compute_dtype]] += 1
     return dx.to(x.dtype), doff, dw

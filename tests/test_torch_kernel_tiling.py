@@ -7,6 +7,13 @@ slot attention's P.V, on the CPU.
   the H100's 132 SMs; it keeps all of Cout in one block (each sample
   gathered once) except at the 32x64 level, whose 2,048 pixels need Cout
   split in two to fill the card.
+* ``bf16_backward_geometry`` (``ops/cuda/deform_conv.py``): the bf16 DCN
+  backward's data-pass tile and dW-pass split K.  At the 12 shapes of the
+  800x1600 training crop both passes fill the card; the dW splits are a
+  function of B*H*W, Cin and the SM count only, each a run of whole 4 x 16
+  pixel tiles; the partials and the W^T image follow the geometry; both
+  passes fit in a block's shared memory for Cin and Cout in {20, 24, 128,
+  256}.
 * ``sa_grid`` (``ops/cuda/slot_attention.py``): the number of pixel runs G
   is a function of P and the card, not of B.
 * The kernel's p.v splits the f32 softmax p into three bf16 parts
@@ -23,8 +30,9 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from slotvps_tpu_torch.ops.cuda.deform_conv import (Bf16Geometry,
-                                                    bf16_forward_geometry)
+from slotvps_tpu_torch.ops.cuda.deform_conv import (
+    BWD_DW_TILE, MAX_SMEM, Bf16Geometry, bf16_backward_geometry,
+    bf16_forward_geometry, bwd_data_smem, bwd_dw_smem, dw_splits)
 from slotvps_tpu_torch.ops.cuda.slot_attention import TILE_PIXELS, sa_grid
 
 SMS = 132
@@ -76,6 +84,89 @@ def test_dcn_geometry_takes_the_largest_tile_that_fills_the_card():
         4, 8, 256, 1, 256)
     # a card with fewer SMs keeps the larger tile at 64x128
     assert bf16_forward_geometry(64, 128, 256, 100).tile_w == 16
+
+
+TRAIN_SHAPES = [(h, w, ci, co) for h, w in TRAIN_LEVELS
+                for ci, co in BLOCKS]
+
+
+@pytest.mark.parametrize("h,w,c_in,c_out", TRAIN_SHAPES)
+def test_dcn_backward_fills_the_card_at_every_training_shape(h, w, c_in,
+                                                             c_out):
+    """The bf16 backward at B = 2 (reference + current frame): the data
+    pass puts a block on every SM, all of Cin a block; the dW pass keeps
+    all of Cout in a block (each sample gathered once), and its grid of
+    row tiles x splits fills whole waves of the card: every SM in each
+    wave but, at the 25x50 level's 128 -> 128 block, 126 of the 132 in its
+    one wave (a second wave of smaller splits would take longer)."""
+    geo = bf16_backward_geometry(2, h, w, c_in, c_out, SMS)
+    assert geo.data_blocks >= SMS
+    assert geo.data_blocks == 2 * -(-h // geo.tile_h) * -(-w // geo.tile_w)
+    assert geo.tile_h * geo.tile_w <= 64 and geo.nci >= c_in
+    assert geo.nc >= c_out and geo.nc in (64, 128, 256)
+    waves = -(-geo.dw_blocks // SMS)
+    fill = geo.dw_blocks / (waves * SMS)
+    assert fill == 1.0 or (fill > 0.95 and waves == 1), (geo, fill)
+    assert fill == 1.0 or (h, w, c_in) == (25, 50, 128)
+
+
+@pytest.mark.parametrize("shapes", [
+    [(2, 200, 400), (1, 400, 400), (4, 100, 400), (8, 100, 200)],
+    [(2, 25, 50), (1, 50, 50), (2, 50, 25)],
+    [(1, 9, 40), (2, 9, 20), (1, 18, 20)],
+])
+def test_dcn_backward_splits_depend_on_the_pixel_count_only(shapes):
+    """dW's pixel ranges (and so its order of sums) follow B*H*W, Cin and
+    the card, not the batch, the image's height and width, or Cout."""
+    for c_in in (20, 128, 256):
+        splits = {bf16_backward_geometry(b, h, w, c_in, c_out, SMS).splits
+                  for b, h, w in shapes for c_out in (24, 128, 256)}
+        assert len(splits) == 1
+        b, h, w = shapes[0]
+        assert splits == {dw_splits(b * h * w, c_in, SMS)}
+
+
+@pytest.mark.parametrize("b,h,w,c_in,c_out", [
+    (2, 200, 400, 256, 256), (2, 25, 50, 128, 128), (2, 13, 70, 256, 256),
+    (1, 9, 40, 20, 24), (1, 5, 7, 8, 4)])
+def test_dcn_backward_split_ranges_are_whole_tiles(b, h, w, c_in, c_out):
+    """The splits cover the batch's 4 x 16 tiles in order, each split a
+    non-empty run of whole tiles, the splits at least 128 pixels apart (one
+    split below that); the partials hold one 9*Cin x Cout block per split."""
+    geo = bf16_backward_geometry(b, h, w, c_in, c_out, SMS)
+    th, tw = BWD_DW_TILE
+    assert geo.dw_tiles == b * -(-h // th) * -(-w // tw)
+    ranges = geo.split_ranges()
+    assert len(ranges) == geo.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == geo.dw_tiles
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+    assert geo.splits == 1 or b * h * w >= 128 * geo.splits
+    assert geo.part_elems(c_in, c_out) == geo.splits * 9 * c_in * c_out
+    assert geo.wimg_elems(c_out) == 9 * -(-c_out // 64) * geo.nci * 64
+
+
+@pytest.mark.parametrize("c_in", [20, 24, 128, 256])
+@pytest.mark.parametrize("c_out", [20, 24, 128, 256])
+def test_dcn_backward_shared_memory_fits(c_in, c_out):
+    """Both wgmma passes fit in a block's 232,448 bytes (the data pass: g
+    tile, a 3-stage W^T ring, two dsample tiles; the dW pass: a 4-stage
+    ring of sample and g stages), and the sizes follow the widths."""
+    geo = bf16_backward_geometry(2, 25, 50, c_in, c_out, SMS)
+    smem = geo.smem(c_out)
+    assert smem["data"] <= MAX_SMEM and smem["dw"] <= MAX_SMEM
+    assert smem == {"data": bwd_data_smem(geo.nci, c_out),
+                    "dw": bwd_dw_smem(geo.nc)}
+    assert bwd_dw_smem(256) == 1024 + 4 * (8192 + 32768) + 64
+    assert bwd_data_smem(256, 256) == (1024 + 4 * 8192 + 3 * 32768
+                                       + 2 * 64 * 264 * 2 + 64 * 18 * 4
+                                       + 8 * 8)
+
+
+def test_dcn_backward_geometry_refuses_wide_channels():
+    for c_in, c_out in ((257, 64), (64, 300), (0, 8)):
+        with pytest.raises(ValueError, match="Cin, Cout <= 256"):
+            bf16_backward_geometry(1, 8, 8, c_in, c_out, SMS)
 
 
 @pytest.mark.parametrize("n_pix", [1, 33, 2048, 4133, 8192, 32768, 131072])

@@ -1,7 +1,9 @@
 """The Hopper kernels against their plain PyTorch versions, on the card:
 the DCN kernel in f32 and bf16 (forward, the bf16 forward's f32 output,
 the backward and its autograd Function; the bf16 forward at the largest
-level and its batch invariance), the five fused-postprocess
+level and its batch invariance; the bf16 backward's wgmma passes at B = 2
+with ragged channels and widths, and its dW for a one-hot g, bit for bit
+the rounded samples), the five fused-postprocess
 kernels (theta, claim, argmax with and without its runner-up map, repair,
 hist, sseg), their K-minor entries (theta, claim and argmax-areas on
 [h, w, K] masks), the claim-scan kernel and the slot-attention kernel
@@ -273,6 +275,57 @@ def test_backward_dx_is_the_same_on_every_run(cuda_device, dtype):
     assert float(out[0].abs().max()) > 0
     for a, b in zip(out, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 9, 40, 20, 24, 3),       # ragged Cin and Cout: partial chunks, no
+                                 # 16-byte x or ds access
+    (2, 13, 70, 256, 256, 2),    # ragged width: edge tiles of both passes
+    (2, 6, 9, 24, 20, 1),        # Cout not a multiple of 8: g padded
+])
+def test_bf16_backward_at_batch_two(cuda_device, shape):
+    """The wgmma backward at B = 2 against the plain bf16 backward (dx, doff
+    and dW within 1e-2 of max|ref|), equal in two runs."""
+    b, h, w, c, co, halo = shape
+    x, off, wt = _case(cuda_device, b, h, w, c, co, halo)
+    g = torch.randn((b, h, w, co), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3))
+    out = dcn_backward_hopper(x, off, wt, g, halo, torch.bfloat16)
+    again = dcn_backward_hopper(x, off, wt, g, halo, torch.bfloat16)
+    ref = deform_conv2d_backward(x, off, wt, g, halo, torch.bfloat16)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dx", "doff", "dW"), out, ref):
+        err = float((a - r).abs().max())
+        assert err <= 1e-2 * float(r.abs().max()), (name, err)
+    for a, b_ in zip(out, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out", [(20, 24), (256, 256)])
+def test_bf16_backward_dw_of_a_one_hot_g(cuda_device, c_in, c_out):
+    """With g one-hot at one (pixel, output channel), dW's column of that
+    channel is the pixel's 9 x Cin rounded samples times 1 and every other
+    column is 0: the kernel's dW equals the plain backward's and the
+    corner-ordered samples bit for bit (a transposed operand would move
+    the samples to other rows or columns)."""
+    b, h, w, halo = 2, 11, 37, 3
+    x, off, wt = _case(cuda_device, b, h, w, c_in, c_out, halo)
+    g = torch.zeros((b, h, w, c_out), device=cuda_device)
+    at, co = (1, 5, 21), c_out - 3
+    g[at + (co,)] = 1.0
+    dw = dcn_backward_hopper(x, off, wt, g, halo, torch.bfloat16)[2]
+    ref = deform_conv2d_backward(x, off, wt, g, halo, torch.bfloat16)[2]
+    samples = _corner_ordered_samples(x.to(torch.bfloat16), off, halo)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, ref)
+    assert torch.equal(dw[..., co].reshape(9, c_in),
+                       samples[at].float().reshape(9, c_in))
+    others = torch.ones(c_out, dtype=torch.bool, device=cuda_device)
+    others[co] = False
+    assert float(dw[..., others].abs().max()) == 0.0
+    assert float(dw[..., co].abs().max()) > 0
 
 
 @pytest.mark.cuda
