@@ -10,10 +10,11 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      precision setup (no TF32, bf16 products reduced in f32).
   2. build    — compile the four kernel libraries from
      slotvps_tpu_torch/csrc/ (one nvcc each, started together); one line
-     per wgmma kernel (the bf16 DCN forward, the bf16 DCN backward's data
-     and dW passes, slot attention's pass 1) with its registers, dynamic
-     shared memory and spills from ptxas; the backward's shared memory as
-     the wrapper states it against the library's.
+     per wgmma kernel (the DCN forward and the DCN backward's data and dW
+     passes in bf16 and in f32, slot attention's pass 1) with its
+     registers, dynamic shared memory and spills from ptxas; each DCN
+     kernel's shared memory as the wrapper states it against the
+     library's.
   3. kernels  — each kernel against its plain PyTorch version on the card,
      with CUDA-event times of both and the bound: the DCN kernel in f32 and
      in bf16 at the 12 (tower block, FPN level) shapes of a 1024x2048
@@ -22,18 +23,19 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      so that repair has dirty tiles; sseg on [256, 512, 19] quarter-res
      logits with ties; slot attention at the decoder's four pixel counts;
      argmax with its runner-up map (top2) and hist at K = 64.
-     Batch invariance: the bf16 DCN at a P3 shape with B = 2 against each
-     image alone, slot attention with B = 2 at P = 32768 against each batch
-     element alone, bit for bit, and two runs equal.
+     Batch invariance: the bf16 and the f32 DCN at a P3 shape with B = 2
+     against each image alone, slot attention with B = 2 at P = 32768
+     against each batch element alone, bit for bit, and two runs equal.
      At the 12 shapes of the 800x1600 training crop (B=2: the reference
      and the current frame), each level at its halo, with offsets that
      clamp some taps: the DCN forward kernel on the f32 model's bf16 route
-     (f32 x and offsets, bf16 compute, f32 output), and the DCN backward
-     kernel in f32 and in bf16 against the plain backward (dx, doff and dW
-     each equal in two runs), with the profiler's device time of each of
-     its passes (data, dx, dW, reduction, the weight image, the wrapper's
-     casts) and the host's time to enqueue a call, summed over the 12
-     shapes.
+     (f32 x and offsets, bf16 compute, f32 output) and the f32 DCN
+     forward (the pallas_f32 step's), and the DCN backward kernel in f32
+     and in bf16 against the plain backward (dx, doff and dW each equal in
+     two runs), with the profiler's device time of each of its passes
+     (data, dx, dW, reduction, the weight image, f32 g's transposed
+     split, the wrapper's casts) and the host's time to enqueue a call,
+     summed over the 12 shapes.
   4. slice    — r50_fpn_slotvps at full width and 1024x2048, the JAX
      package's tuned stack with the slot-attention kernel (bf16, bf16 DCN
      kernel, fused_sseg, fused postprocess, retriever_impl="pallas"),
@@ -85,7 +87,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      counts, losses, ms/step and peak memory; a step split into forward /
      backward / optimizer and a profiler pass over one more; then, with
      fixed_match, the loss terms and every gradient of one step with
-     dcn_impl="pallas_f32" against one with the plain DCN.
+     dcn_impl="pallas_f32" against one with the plain DCN, each step's ms
+     and, in one more pallas_f32 step under the profiler, its DCN
+     kernels' device ms.
   10. report  — the card line, the kernels' JSON line, and last the result
      line {"ok": true, "device": {...}}.
 
@@ -158,10 +162,14 @@ PLAIN_BF16_PAN = 0.30
 # valid, labels 0..18, things > 10
 FUSED_SHAPE = (256, 512, 100)
 # published H100 SXM peaks at 700 W: f32 outside the tensor cores, dense
-# bf16 on the tensor cores, HBM
+# bf16 and TF32 on the tensor cores, HBM
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
 HBM_BYTES = 3.35e12
+# the f32 DCN kernels run each f32 product as three TF32 products (the
+# split-TF32 product of csrc/deform_conv.cu)
+TF32_PASSES = 3
 # the training crop (cli/train.py --crop): (H, W, halo) of its FPN levels
 # P2..P5, and the batch the semantic tower sees (reference + current frame)
 TRAIN_H, TRAIN_W = 800, 1600
@@ -272,22 +280,25 @@ def reset_counts():
     wrappers()["argmax_hopper"].top2_launches = 0
 
 
-def bound_parts(n_bytes, n_ops, peak_ops=F32_FLOPS, n_ops_bf16=0):
-    """The three least times in ms on the published peaks: the bytes at the
-    memory rate, ``n_ops`` at ``peak_ops`` and ``n_ops_bf16`` (bf16
-    products, f32 sums) at the tensor cores' rate."""
+def bound_parts(n_bytes, n_ops, peak_ops=F32_FLOPS, n_ops_bf16=0,
+                n_ops_tf32=0):
+    """The least times in ms on the published peaks: the bytes at the
+    memory rate, ``n_ops`` at ``peak_ops``, ``n_ops_bf16`` (bf16 products,
+    f32 sums) and ``n_ops_tf32`` (TF32 products) at the tensor cores'
+    rates."""
     return dict(bytes=n_bytes / HBM_BYTES * 1e3,
                 ops=n_ops / peak_ops * 1e3,
-                ops_bf16=n_ops_bf16 / BF16_FLOPS * 1e3)
+                ops_bf16=n_ops_bf16 / BF16_FLOPS * 1e3,
+                ops_tf32=n_ops_tf32 / TF32_FLOPS * 1e3)
 
 
-def bound(n_bytes, n_ops, peak_ops=F32_FLOPS, n_ops_bf16=0):
+def bound(n_bytes, n_ops, peak_ops=F32_FLOPS, n_ops_bf16=0, n_ops_tf32=0):
     """(bound ms, what bounds it): the largest of :func:`bound_parts`.  The
     memory, the tensor cores and the other pipes work at the same time, so
-    the least time of work of mixed kinds is the longest of the three, not
+    the least time of work of mixed kinds is the longest of them, not
     their sum."""
-    parts = bound_parts(n_bytes, n_ops, peak_ops, n_ops_bf16)
-    t_ops = max(parts["ops"], parts["ops_bf16"])
+    parts = bound_parts(n_bytes, n_ops, peak_ops, n_ops_bf16, n_ops_tf32)
+    t_ops = max(parts["ops"], parts["ops_bf16"], parts["ops_tf32"])
     return ((parts["bytes"], "bytes") if parts["bytes"] >= t_ops
             else (t_ops, "operations"))
 
@@ -329,18 +340,22 @@ def phase_build():
     for row in wgmma_kernel_resources(deform_conv.LIBRARY,
                                       slot_attention.LIBRARY):
         log("build", json.dumps(row))
-    check_backward_smem()
+    check_dcn_smem()
     return {name: secs for name, (_, secs) in built.items()}
 
 
 # (kernel in ptxas' mangled names, its dynamic shared memory at a template
-# width from the library's C entry: the backward's data pass at its largest
-# Cout, 256)
+# width from the library's C entry: the backward's data passes at their
+# largest Cout, 256)
 WGMMA_KERNELS = (
     ("dcn_fwd_bf16_kernel", lambda lib, n: lib.dcn_forward_bf16_smem(n)),
     ("dcn_bwd_data_bf16_kernel",
      lambda lib, n: lib.dcn_bwd_data_bf16_smem(n, 256)),
     ("dcn_bwd_dw_bf16_kernel", lambda lib, n: lib.dcn_bwd_dw_bf16_smem(n)),
+    ("dcn_fwd_f32_kernel", lambda lib, n: lib.dcn_forward_f32_smem(n)),
+    ("dcn_bwd_data_f32_kernel",
+     lambda lib, n: lib.dcn_bwd_data_f32_smem(n, 256)),
+    ("dcn_bwd_dw_f32_kernel", lambda lib, n: lib.dcn_bwd_dw_f32_smem(n)),
     ("slot_attn_partial_kernel", lambda lib, n: lib.sa_smem_bytes(n)))
 
 
@@ -377,28 +392,35 @@ def wgmma_kernel_resources(*libs):
                     spill_loads=ld, stack_bytes=stack,
                     dynamic_smem_bytes=kern[1](handle, width)))
                 name = None
-    if len(rows) != 14:
+    if len(rows) != 23:
         raise AssertionError(
-            f"ptxas reported {len(rows)} wgmma kernel instances, not 14 (6 "
-            "DCN forward, 3 + 3 DCN backward, 2 slot attention)")
+            f"ptxas reported {len(rows)} wgmma kernel instances, not 23 (6 "
+            "bf16 and 3 f32 DCN forward, 3 + 3 bf16 and 3 + 3 f32 DCN "
+            "backward, 2 slot attention)")
     return rows
 
 
-def check_backward_smem():
-    """The wrapper's statement of the bf16 backward's shared memory (its
-    geometry helper, tested on the CPU) equals the library's."""
+def check_dcn_smem():
+    """The wrapper's statement of the DCN kernels' shared memory (its
+    geometry helpers, tested on the CPU) equals the library's: the bf16
+    backward's passes, the f32 forward and the f32 backward's passes."""
     from slotvps_tpu_torch.ops.cuda import deform_conv as dc
 
     lib = dc.LIBRARY.load()
     for n in (64, 128, 256):
+        got = (lib.dcn_forward_f32_smem(n), lib.dcn_bwd_dw_bf16_smem(n),
+               lib.dcn_bwd_dw_f32_smem(n))
+        want = (dc.fwd_f32_smem(n), dc.bwd_dw_smem(n), dc.bwd_dw_f32_smem(n))
         for c_out in (20, 24, 128, 256):
-            got = (lib.dcn_bwd_data_bf16_smem(n, c_out),
-                   lib.dcn_bwd_dw_bf16_smem(n))
-            want = (dc.bwd_data_smem(n, c_out), dc.bwd_dw_smem(n))
-            if got != want:
-                raise AssertionError(f"bf16 backward shared memory at width "
-                                     f"{n}, Cout {c_out}: library {got}, "
-                                     f"wrapper {want}")
+            got += (lib.dcn_bwd_data_bf16_smem(n, c_out),
+                    lib.dcn_bwd_data_f32_smem(n, c_out))
+            want += (dc.bwd_data_smem(n, c_out),
+                     dc.bwd_data_f32_smem(n, c_out))
+        if got != want:
+            raise AssertionError(f"DCN shared memory at width {n} (f32 "
+                                 "forward, dW bf16 / f32, data bf16 / f32 at "
+                                 f"Cout 20, 24, 128, 256): library {got}, "
+                                 f"wrapper {want}")
 
 
 def _cuda_ms(fn, n=10, warmup=2):
@@ -473,6 +495,9 @@ def phase_kernels(dev, levels=DCN_LEVELS, blocks=DCN_BLOCKS, timed=True,
                        io_dtype=str(io_dtype), max_abs_err=err,
                        max_abs_ref=scale, rel_err=err / scale, bytes=n_bytes,
                        ops=2 * 9 * cin * cout * b * h * w)
+            row["bound_ms"], row["bound_by"] = _fwd_bound([row], dtype)
+            if dtype == torch.float32:
+                row["bound_fma_ms"] = _fma_bound([row])
             if timed:
                 with torch.no_grad():
                     row["ms"] = _cuda_ms(kern)
@@ -485,6 +510,24 @@ def phase_kernels(dev, levels=DCN_LEVELS, blocks=DCN_BLOCKS, timed=True,
                     f"max|ref| {scale:.3e}, or output dtype {out.dtype}")
             rows.append(row)
     return rows
+
+
+def _fwd_bound(rows, dtype):
+    """Bound of the forward rows' work: bf16 products on the tensor cores;
+    f32 products as the kernel runs them, three TF32 products each (the
+    f32 FMA bound beside it: :func:`_fma_bound`)."""
+    n_bytes = sum(r["bytes"] for r in rows)
+    ops = sum(r["ops"] for r in rows)
+    if dtype == torch.float32:
+        return bound(n_bytes, 0, n_ops_tf32=TF32_PASSES * ops)
+    return bound(n_bytes, 0, n_ops_bf16=ops)
+
+
+def _fma_bound(rows, ops_keys=("ops",)):
+    """The f32 rows' work all on the f32 pipes (67 TFLOP/s), as f32 FMA
+    kernels run it: ms."""
+    return bound(sum(r["bytes"] for r in rows),
+                 sum(r[k] for r in rows for k in ops_keys))[0]
 
 
 def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
@@ -540,6 +583,9 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
                        ops_f32=24 * 9 * cin * p)
             row["bound_ms"], row["bound_by"] = _bwd_bound([row], dtype)
             row["bound_parts_ms"] = _bwd_bound([row], dtype, parts=True)
+            if dtype == torch.float32:
+                row["bound_fma_ms"] = _fma_bound([row],
+                                                 ("ops_main", "ops_f32"))
             if timed:
                 row["ms"] = _cuda_ms(kern)
                 row["plain_ms"] = _cuda_ms(plain, n=3, warmup=1)
@@ -580,12 +626,12 @@ def _host_ms(fn, n=5):
     return (t1 - t0) * 1e3 / n
 
 
-# the backward's kernels by pass (substrings of their names)
+# the backward's kernels by pass (substrings of their names; both dtypes:
+# dcn_bwd_data_{bf16,f32}_kernel, dcn_bwd_dx_kernel<CPL, T>,
+# dcn_bwd_dw_{bf16,f32}_kernel, dcn_wimg{,_f32}_kernel)
 BWD_PASSES = (("dcn_bwd_data", "data"), ("dcn_bwd_dx", "dx"),
-              ("dcn_bwd_dw_bf16_kernel", "dW"),
-              ("dcn_bwd_weight_kernel", "dW"),
-              ("dcn_bwd_reduce_kernel", "reduction"),
-              ("dcn_wimg_kernel", "weight_image"))
+              ("dcn_bwd_dw_", "dW"), ("dcn_bwd_reduce_kernel", "reduction"),
+              ("dcn_wimg", "weight_image"), ("dcn_gsplit_kernel", "g_split"))
 
 
 def _bwd_pass_ms(fn):
@@ -607,14 +653,16 @@ def _bwd_pass_ms(fn):
 
 
 def _bwd_bound(rows, dtype, parts=False):
-    """Bound of the backward rows' work: the products at the compute
-    dtype's peak, the f32 elementwise work at the f32 peak (in bf16 the two
-    run on different pipes at the same time: the longer one bounds).  With
-    ``parts``, the three times (bytes, f32 work, tensor-core work)."""
+    """Bound of the backward rows' work: the products on the tensor cores
+    (bf16; in f32 three TF32 products each, as the kernels run them), the
+    f32 elementwise work at the f32 peak (the two run on different pipes
+    at the same time: the longer one bounds).  With ``parts``, the times
+    (bytes, f32 work, tensor-core work)."""
     n_bytes = sum(r["bytes"] for r in rows)
     ops = sum(r["ops_main"] for r in rows)
     ops_f32 = sum(r["ops_f32"] for r in rows)
-    args = ((n_bytes, ops + ops_f32) if dtype == torch.float32
+    args = ((n_bytes, ops_f32, F32_FLOPS, 0, TF32_PASSES * ops)
+            if dtype == torch.float32
             else (n_bytes, ops_f32, F32_FLOPS, ops))
     return bound_parts(*args) if parts else bound(*args)
 
@@ -861,22 +909,25 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
 def phase_batch_invariance(dev, dcn_shape=(128, 256, 256, 256, 3),
                            sa_pixels=32768, n_slots=SA_SLOTS):
     """Each image of a batch of 2 against the same image alone, bit for
-    bit: the bf16 DCN (bf16 in and out) at a P3 shape and slot attention
-    at P = 32768; and each batched call equal in two runs.  These launches
-    are not the main path's."""
+    bit: the bf16 DCN (bf16 in and out) and the f32 DCN at a P3 shape and
+    slot attention at P = 32768; and each batched call equal in two runs.
+    These launches are not the main path's."""
     from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
     from slotvps_tpu_torch.ops.cuda.slot_attention import (
         slot_attention_hopper)
 
     h, w, cin, cout, halo = dcn_shape
-    x, off, wt = (t.to(torch.bfloat16) for t in dcn_case(
-        dev, h, w, cin, cout, halo, seed=90, b=2))
-    with torch.no_grad():
-        both = deform_conv2d_hopper(x, off, wt, halo)
-        again = deform_conv2d_hopper(x, off, wt, halo)
-        alone = [deform_conv2d_hopper(x[i:i + 1].contiguous(),
-                                      off[i:i + 1].contiguous(), wt, halo)
-                 for i in range(2)]
+    dcn = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, off, wt = (t.to(dtype) for t in dcn_case(
+            dev, h, w, cin, cout, halo, seed=90, b=2))
+        with torch.no_grad():
+            both = deform_conv2d_hopper(x, off, wt, halo)
+            again = deform_conv2d_hopper(x, off, wt, halo)
+            alone = [deform_conv2d_hopper(x[i:i + 1].contiguous(),
+                                          off[i:i + 1].contiguous(), wt,
+                                          halo) for i in range(2)]
+        dcn[dtype] = (both, again, alone)
     g = torch.Generator(device=dev).manual_seed(91)
     q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                for shape in ((2, n_slots, 256), (2, sa_pixels, 256),
@@ -889,17 +940,20 @@ def phase_batch_invariance(dev, dcn_shape=(128, 256, 256, 256, 3),
                 for i in range(2)]
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    row = dict(
-        dcn_shape=f"2x{h}x{w} {cin}->{cout} halo {halo}",
-        dcn_equal_alone=[torch.equal(both[i:i + 1], alone[i])
-                         for i in range(2)],
-        dcn_equal_again=torch.equal(both, again),
+    row = dict(dcn_shape=f"2x{h}x{w} {cin}->{cout} halo {halo}")
+    for dtype, (both, again, alone) in dcn.items():
+        name = "dcn" if dtype == torch.bfloat16 else "dcn_f32"
+        row[f"{name}_equal_alone"] = [torch.equal(both[i:i + 1], alone[i])
+                                      for i in range(2)]
+        row[f"{name}_equal_again"] = torch.equal(both, again)
+    row.update(
         sa_shape=f"2x{n_slots}x{sa_pixels}",
         sa_equal_alone=[torch.equal(sa_both[i:i + 1], sa_alone[i])
                         for i in range(2)],
         sa_equal_again=torch.equal(sa_both, sa_again))
     log("kernels", json.dumps({"batch_invariance": row}))
     if not (all(row["dcn_equal_alone"]) and row["dcn_equal_again"]
+            and all(row["dcn_f32_equal_alone"]) and row["dcn_f32_equal_again"]
             and all(row["sa_equal_alone"]) and row["sa_equal_again"]):
         raise AssertionError(f"a kernel's batch of 2 is not its images "
                              f"alone bit for bit, or two runs differ: {row}")
@@ -1482,7 +1536,7 @@ def phase_train(dev, steps=TRAIN_STEPS, size=(TRAIN_H, TRAIN_W)):
                                 key=lambda kv: -kv[1][0])[:14]:
         log("train", f"  {ms:9.3f} ms {n:5d} x {name[:90]}")
     for kern in ("dcn_fwd_bf16_kernel", "dcn_bwd_data_bf16_kernel",
-                 "dcn_bwd_dx_bf16_kernel", "dcn_bwd_dw_bf16_kernel",
+                 "dcn_bwd_dx_kernel", "dcn_bwd_dw_bf16_kernel",
                  "dcn_bwd_reduce_kernel"):
         hits = [(ms, n) for name, (ms, n) in by_name.items() if kern in name]
         if hits:
@@ -1495,23 +1549,48 @@ def phase_train(dev, steps=TRAIN_STEPS, size=(TRAIN_H, TRAIN_W)):
 def phase_train_parity(dev, init_state, batch):
     """With fixed_match, the loss terms and every gradient of one step with
     the f32 DCN kernel (forward and backward) against one with the plain
-    DCN, from the same weights and batch.  Returns the pallas_f32 run's
-    stats (its launch counts)."""
+    DCN, from the same weights and batch; each step's ms (host clock
+    around loss and backward, ending in a synchronize), then one more
+    pallas_f32 step under the profiler: its DCN kernels' device ms.
+    Returns the pallas_f32 run's stats (its launch counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from slotvps_tpu_torch.training.step import loss_fn
 
     cfg = train_config()
-    runs = {}
+    runs, step_ms = {}, {}
     for impl in ("pallas_f32", "jax"):
         model = train_model(cfg, dev)
         model.load_state_dict(init_state)
         mcfg = _with_dcn(cfg, impl)
         _reset_peak(dev)
         reset_counts()
+        t0 = time.perf_counter()
         total, metrics = loss_fn(model, mcfg, batch, fixed_match=True)
         total.backward()
         _sync(dev)
+        step_ms[impl] = (time.perf_counter() - t0) * 1e3
         runs[impl] = ({k: float(v.detach()) for k, v in metrics.items()},
                       _grads(model), launch_counts(), _peak_gib(dev))
+        if impl == "pallas_f32" and dev.type == "cuda":
+            model.zero_grad()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                total, metrics = loss_fn(model, mcfg, batch,
+                                         fixed_match=True)
+                total.backward()
+                _sync(dev)
+            by_name = _device_time_by_kernel(prof)
+            dcn = {}
+            for name, (ms, n) in by_name.items():
+                m = re.search(r"dcn_\w+", name)
+                if m:
+                    dcn[m.group(0)] = dcn.get(m.group(0), 0.0) + ms
+            log("train", json.dumps({
+                "pallas_f32_step_profiled": {
+                    "device_ms": sum(ms for ms, _ in by_name.values()),
+                    "dcn_device_ms": sum(dcn.values()),
+                    "dcn_by_kernel_ms": dcn}}))
         del model, total, metrics
     (m_k, g_k, launches, peak_k), (m_p, g_p, plain_launches, peak_p) = (
         runs["pallas_f32"], runs["jax"])
@@ -1523,6 +1602,7 @@ def phase_train_parity(dev, init_state, batch):
                 / max(g_max[n], floor) for n in g_p}
     worst = [(n, r, g_max[n]) for n, r in sorted(
         grad_rel.items(), key=lambda kv: -kv[1])[:5]]
+    log("train", json.dumps({"parity_step_ms": step_ms}))
     log("train", f"pallas_f32 vs plain DCN, fixed_match: loss terms "
                  f"{json.dumps(m_k)}; max rel loss diff "
                  f"{max(loss_rel.values()):.3e}; max rel grad diff "
@@ -1542,7 +1622,7 @@ def phase_train_parity(dev, init_state, batch):
         raise AssertionError(f"pallas_f32 step disagrees with the plain "
                              f"step: losses {loss_rel}, gradients {worst}")
     return dict(path="train_f32", launches=launches, peak_mem_gib=peak_k,
-                plain_peak_mem_gib=peak_p)
+                plain_peak_mem_gib=peak_p, step_ms=step_ms)
 
 
 def phase_top2_hist(dev, shape=PP_SHAPES[0], n_valid=PP_VALID, timed=True):
@@ -2127,17 +2207,18 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, serving_rows,
     read on the batched claim-scan run; ``fused_rows`` the K-minor chain's
     three kernels on its random input (FUSED_SHAPE)."""
     rows = []
-    for name, peak in (("deform_conv2d_hopper", F32_FLOPS),
-                       ("deform_conv2d_hopper_bf16", BF16_FLOPS),
-                       ("deform_conv2d_hopper_bf16_f32", BF16_FLOPS)):
+    for name, dtype in (("deform_conv2d_hopper", torch.float32),
+                        ("deform_conv2d_hopper_bf16", torch.bfloat16),
+                        ("deform_conv2d_hopper_bf16_f32", torch.bfloat16)):
         per_shape = dcn_rows[name]
-        b_ms, b_by = bound(sum(r["bytes"] for r in per_shape),
-                           sum(r["ops"] for r in per_shape), peak)
+        b_ms, b_by = _fwd_bound(per_shape, dtype)
         rows.append(dict(
             name=name, max_abs_err=max(r["max_abs_err"] for r in per_shape),
             ms=sum(r["ms"] for r in per_shape),
             plain_ms=sum(r["plain_ms"] for r in per_shape),
             bound_ms=b_ms, bound_by=b_by, build_s=build_s["deform_conv"]))
+        if dtype == torch.float32:
+            rows[-1]["bound_fma_ms"] = _fma_bound(per_shape)
     # the backward per training step: sums over its 12 shapes
     for name, dtype in (("dcn_backward_hopper", torch.float32),
                         ("dcn_backward_hopper_bf16", torch.bfloat16)):
@@ -2154,6 +2235,9 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, serving_rows,
             bound_ms=b_ms, bound_by=b_by,
             bound_parts_ms=_bwd_bound(per_shape, dtype, parts=True),
             pass_ms=pass_ms, build_s=build_s["deform_conv"]))
+        if dtype == torch.float32:
+            rows[-1]["bound_fma_ms"] = _fma_bound(
+                per_shape, ("ops_main", "ops_f32"))
     for name, row in list(pp_rows.items()) + [("sseg_hopper", sseg_row)]:
         rows.append(dict(
             name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],
@@ -2202,6 +2286,9 @@ def main():
         "deform_conv2d_hopper_bf16_f32": phase_kernels(
             dev, levels=TRAIN_LEVELS, b=TRAIN_B, dtype=torch.bfloat16,
             io_dtype=torch.float32)}
+    # the pallas_f32 step's forward: the f32 kernel at the training shapes
+    # (printed; its launches are read on the train_f32 path)
+    phase_kernels(dev, levels=TRAIN_LEVELS, b=TRAIN_B, dtype=torch.float32)
     bwd_rows = {dtype: phase_backward_kernels(dev, dtype=dtype)
                 for dtype in (torch.float32, torch.bfloat16)}
     pp_rows = phase_postproc_kernels(dev)

@@ -6,6 +6,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 kernel_variants.py slot_attention
     python3 kernel_variants.py deform_conv
     python3 kernel_variants.py dcn_backward
+    python3 kernel_variants.py dcn_f32
+    python3 kernel_variants.py dcn_backward_f32
 
 Each variant is ``slotvps_tpu_torch/csrc/<kernel>.cu`` with a few text
 replacements (VARIANTS below), compiled with the port's nvcc flags into a
@@ -14,7 +16,8 @@ decoder's two largest pixel counts (q [1, 100, 256], k and v [1, P, 256]
 bf16), the bf16 DCN forward at three shapes of a 1024x2048 frame (bf16 in
 and out), the bf16 DCN backward (``dcn_backward``: the same source, its
 passes and their parts) at P2 and P4 of the 800x1600 training crop, B = 2,
-256 -> 256.  One JSON line per (shape, variant): CUDA-event ms (mean of 20
+256 -> 256; ``dcn_f32`` and ``dcn_backward_f32`` do the same for the f32
+(split-TF32) forward, f32 in and out, and backward.  One JSON line per (shape, variant): CUDA-event ms (mean of 20
 calls after 3; 10 after 2 for the backward) and the error relative to the
 plain version (the backward: of dx, doff and dW each).  The variants
 that skip work give wrong results on purpose: they tell where the time
@@ -47,6 +50,11 @@ SLOTS = 100
 # (H, W, Cin, Cout, halo) of the DCN cases
 DCN_SHAPES = ((256, 512, 256, 256, 2), (64, 128, 256, 256, 4),
               (32, 64, 256, 256, 6))
+# the three products of a k8 step in csrc/deform_conv.cu's mma3 (the f32
+# kernels' split-TF32 product)
+_MMA3 = ("  wgmma_tf32<N>(d, ah, desc128(bh, 16, 1024), scale_d);\n"
+         "  wgmma_tf32<N>(d, ah, desc128(bl, 16, 1024), 1);\n"
+         "  wgmma_tf32<N>(d, al, desc128(bh, 16, 1024), 1);\n")
 # kernel -> variant name -> [(text in the source, its replacement)]
 VARIANTS = {"slot_attention": {
     "as_is": [],
@@ -148,10 +156,72 @@ VARIANTS = {"slot_attention": {
          "        for (int bx = 0; bx < 0; ++bx)")],
     "dw_no_wgmma": [("        wgmma<NC, 1, 1>(acc,",
                      "        if (st < 0) wgmma<NC, 1, 1>(acc,")],
+}, "dcn_f32": {
+    "as_is": [],
+    # no corner loads: the samples are formed from zeros
+    "no_corner_loads": [("un[i][j] = load4(x + (img + tp[i].idx[j])",
+                         "if (c < 0) un[i][j] = load4(x + (img + "
+                         "tp[i].idx[j])")],
+    # no products: the three TF32 wgmma of each k8 step skipped
+    "no_products": [(_MMA3, _MMA3.replace("  wgmma_tf32<N>(",
+                                          "  if (scale_d < -1) "
+                                          "wgmma_tf32<N>("))],
+    # one TF32 pass (Ahi.Bhi) instead of three: the split's cost
+    "one_pass": [(_MMA3, _MMA3.split("\n")[0] + "\n")],
+    # the accumulators restarted every 8 chunks (a tap at Cin 256) or
+    # every 9 * Cin (never), 1 as is: accuracy against the sums' cost
+    "flush_8": [("constexpr int TF_FLUSH = 1;", "constexpr int TF_FLUSH = 8;")],
+    "flush_never": [("constexpr int TF_FLUSH = 1;",
+                     "constexpr int TF_FLUSH = 1 << 20;")],
+    # the weight image's two parts not copied (the ring's stale bytes)
+    "no_weight_copy": [("        mbar_arrive_expect_tx(&full[s], 2 * NC * "
+                        "128);\n        bulk_load(dst, src, NC * 128, "
+                        "&full[s]);\n        bulk_load(",
+                        "        mbar_arrive(&full[s]);\n"
+                        "        if (pt < 0) bulk_load(dst, src, NC * 128, "
+                        "&full[s]);\n        if (pt < 0) bulk_load(")],
+}, "dcn_backward_f32": {
+    "as_is": [],
+    # whole passes skipped: the time of each pass is as_is minus its row
+    "no_data_pass": [("data pass: ds and doff\n  err = nci == 64 ? "
+                      "launch_data_f32",
+                      "data pass: ds and doff\n  if (nci < 0) err = "
+                      "nci == 64 ? launch_data_f32")],
+    "no_dx_pass": [("  err = launch_dx_all<float>(",
+                    "  if (nci < 0) err = launch_dx_all<float>(")],
+    "no_dw_pass": [("  err = nc == 64 ? launch_dw_f32",
+                    "  if (nc < 0) err = nc == 64 ? launch_dw_f32")],
+    "no_g_split": [("  dcn_gsplit_kernel<<<", "  if (HW < 0) "
+                    "dcn_gsplit_kernel<<<")],
+    "no_products": [(_MMA3, _MMA3.replace("  wgmma_tf32<N>(",
+                                          "  if (scale_d < -1) "
+                                          "wgmma_tf32<N>("))],
+    "one_pass": [(_MMA3, _MMA3.split("\n")[0] + "\n")],
+    # data pass: no x loads for the corner sums, no ds stores
+    "data_no_corner_loads": [("            if (idx[j] >= 0 && c + 4 * h < "
+                              "Cin)\n              v = load4(",
+                              "            if (idx[j] >= 0 && c + 4 * h < "
+                              "0)\n              v = load4(")],
+    "data_no_ds_store": [("          if (vec_ds && col + 1 < nlim) {\n"
+                          "            *reinterpret_cast<float2*>(row + col)",
+                          "          if (vec_ds && col + 1 < -nlim) {\n"
+                          "            *reinterpret_cast<float2*>(row + col)"
+                          ), ("            if (col < nlim) row[col] = v0;\n"
+                              "            if (col + 1 < nlim)",
+                              "            if (col < -nlim) row[col] = v0;\n"
+                              "            if (col + 1 < -nlim)")],
+    # dW pass: no corner loads (samples from zeros); the accumulators
+    # flushed to the partial every 64 runs (16 as is: the flushes' cost)
+    "dw_no_corner_loads": [("un[i][j] = load4(x + (img_n + tp[i].idx[j])",
+                            "if (c < 0) un[i][j] = load4(x + (img_n + "
+                            "tp[i].idx[j])")],
+    "dw_flush_64": [("constexpr int TW_FLUSH = 16;",
+                     "constexpr int TW_FLUSH = 64;")],
 }}
 # kernel variants -> the library whose entry points they load
 SOURCE = {"slot_attention": "slot_attention", "deform_conv": "deform_conv",
-          "dcn_backward": "deform_conv"}
+          "dcn_backward": "deform_conv", "dcn_f32": "deform_conv",
+          "dcn_backward_f32": "deform_conv"}
 # (B, H, W, Cin, Cout, halo) of the backward's cases: P2 and P4 of the
 # 800x1600 training crop (the reference and the current frame)
 BWD_SHAPES = ((2, 200, 400, 256, 256, 2), (2, 50, 100, 256, 256, 4))
@@ -258,6 +328,77 @@ def run_deform_conv(libs, dev, stream):
                               "ms": ms, "rel_err": rel}), flush=True)
 
 
+def run_dcn_f32(libs, dev, stream):
+    for h, w, c_in, c_out, halo in DCN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(2)
+        x = torch.randn((1, h, w, c_in), generator=g, device=dev)
+        off = torch.randn((1, h, w, 18), generator=g, device=dev) * halo
+        wt = torch.randn((3, 3, c_in, c_out), generator=g, device=dev) \
+            / (9 * c_in) ** 0.5
+        ref = deform_conv2d(x, off, wt, padding=1, max_displacement=halo)
+        geo = dc.f32_forward_geometry(h, w, c_out, _sms(dev))
+        # the as-is source also at 128 output channels a block (one
+        # consumer warpgroup, 4 stages; each sample gathered twice)
+        runs = [(name, lib, geo) for name, lib in libs.items()]
+        if geo.n_tile == 256:
+            runs.append(("as_is_nc128", libs["as_is"], geo._replace(
+                n_tile=128, n_ctiles=-(-c_out // 128))))
+        out = torch.empty((1, h, w, c_out), device=dev)
+        for name, lib, geo in runs:
+            wimg = torch.empty((geo.wimg_elems(c_in),), device=dev)
+
+            def run(lib=lib, geo=geo, wimg=wimg):
+                rc = lib.dcn_forward_f32(
+                    x.data_ptr(), off.data_ptr(), wt.data_ptr(),
+                    wimg.data_ptr(), out.data_ptr(), 1, h, w, c_in, c_out,
+                    halo, geo.tile_h, geo.tile_w, geo.n_tile, stream)
+                if rc:
+                    raise RuntimeError(lib.dcn_error_string(rc).decode())
+            ms = _ms(run)
+            rel = float((out - ref).abs().max() / ref.abs().max())
+            print(json.dumps({"shape": [h, w, c_in, c_out], "variant": name,
+                              "ms": ms, "rel_err": rel}), flush=True)
+
+
+def run_dcn_backward_f32(libs, dev, stream):
+    for b, h, w, c_in, c_out, halo in BWD_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn((b, h, w, c_in), generator=g, device=dev)
+        off = torch.randn((b, h, w, 18), generator=g, device=dev) * halo
+        wt = torch.randn((3, 3, c_in, c_out), generator=g, device=dev) \
+            / (9 * c_in) ** 0.5
+        gout = torch.randn((b, h, w, c_out), generator=g, device=dev)
+        ref = deform_conv2d_backward(x, off, wt, gout, halo, torch.float32)
+        geo = dc.f32_backward_geometry(b, h, w, c_in, c_out, _sms(dev))
+        outs = (torch.empty((b, h, w, c_in), device=dev),
+                torch.empty((b, h, w, 18), device=dev),
+                torch.empty((3, 3, c_in, c_out), device=dev))
+        wimg = torch.empty((geo.wimg_elems(c_out),), device=dev)
+        gt = torch.empty((geo.gt_elems(b, h, w, c_out),), device=dev)
+        ds = torch.empty((b * h * w * 9 * c_in,), device=dev)
+        part = torch.empty((geo.part_elems(c_in, c_out),), device=dev)
+        for name, lib in libs.items():
+            for t in outs:
+                t.zero_()
+
+            def run(lib=lib):
+                rc = lib.dcn_backward_f32(
+                    x.data_ptr(), off.data_ptr(), wt.data_ptr(),
+                    gout.data_ptr(), wimg.data_ptr(), gt.data_ptr(),
+                    outs[0].data_ptr(), outs[1].data_ptr(), ds.data_ptr(),
+                    part.data_ptr(), outs[2].data_ptr(), b, h, w, c_in,
+                    c_out, c_out, halo, geo.tile_h, geo.tile_w, geo.splits,
+                    stream)
+                if rc:
+                    raise RuntimeError(lib.dcn_error_string(rc).decode())
+            ms = _ms(run, n=10, warmup=2)
+            rel = {n: float((o - r).abs().max() / r.abs().max())
+                   for n, o, r in zip(("dx", "doff", "dW"), outs, ref)}
+            print(json.dumps({"shape": [b, h, w, c_in, c_out, halo],
+                              "variant": name, "ms": ms, "rel_err": rel}),
+                  flush=True)
+
+
 def run_dcn_backward(libs, dev, stream):
     for b, h, w, c_in, c_out, halo in BWD_SHAPES:
         g = torch.Generator(device=dev).manual_seed(3)
@@ -309,7 +450,8 @@ def main():
     mod = sa if kernel == "slot_attention" else dc
     run = {"slot_attention": run_slot_attention,
            "deform_conv": run_deform_conv,
-           "dcn_backward": run_dcn_backward}[kernel]
+           "dcn_backward": run_dcn_backward, "dcn_f32": run_dcn_f32,
+           "dcn_backward_f32": run_dcn_backward_f32}[kernel]
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), kernel, mod._declare)
         run(libs, dev, torch.cuda.current_stream().cuda_stream)

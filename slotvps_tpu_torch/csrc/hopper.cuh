@@ -1,8 +1,9 @@
 // Hopper primitives shared by the port's wgmma kernels (deform_conv.cu,
 // slot_attention.cu): mbarriers, bulk and tensor copies (the TMA unit) and
 // the driver's tensor-map encoder, the proxy fence, wgmma's shared-memory
-// descriptors and its m64nNk16 bf16 products with f32 accumulators.  PTX
-// for sm_90a; nothing here allocates or launches.
+// descriptors, its m64nNk16 bf16 products and its m64nNk8 TF32 products
+// (A from registers) with f32 accumulators, and the split of an f32 into
+// two TF32 parts.  PTX for sm_90a; nothing here allocates or launches.
 //
 // Shared-memory operand layout (the one all the kernels use): a tile is a
 // stack of 128-byte rows, each row 64 bf16 of the 16-byte-chunked dimension
@@ -304,6 +305,113 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
     wgmma_m64n128k16<TA, TB>(d, da, db, scale_d);
   else
     wgmma_m64n256k16<TA, TB>(d, da, db, scale_d);
+}
+
+// ---- TF32 ----
+//
+// A 128-byte row holds 32 f32, and one k8 step of TF32 reads the same 32
+// bytes of each row that a k16 step of bf16 reads, so the K-major layout
+// and desc128 above carry over unchanged (step s at 32*s bytes).  TF32
+// takes no transposed operand: A and B are both K-major.
+
+// a rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// as an f32 bit pattern whose low 13 bits are 0.  The tensor cores read
+// only an operand's top 19 bits, so a part that is not rounded here is
+// truncated there.
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// the split of an f32 into two TF32 parts: hi = tf32(a), lo = tf32(a - hi)
+// (a - hi is exact in f32); hi + lo is a to ~2^-22 of |a|
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(a);
+  lo = to_tf32(a - __uint_as_float(hi));
+}
+
+// keeps the compiler from moving a register operand of an async wgmma
+// (read until its wgmma_wait) past the wait
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// D[64 x N] (+)= A[64 x 8] . B[8 x N], TF32 in, f32 in registers; A from
+// registers, B a K-major shared-memory tile.  A's fragment (warp w of the
+// warpgroup, lane l): a[0] row 16w + l/4, column l%4; a[1] row + 8; a[2]
+// column + 4; a[3] both.  The accumulator layout is the bf16 one above.
+// scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "TF32 widths: 64, 128");
+  if constexpr (N == 64)
+    wgmma_tf32_m64n64k8(d, a, db, scale_d);
+  else
+    wgmma_tf32_m64n128k8(d, a, db, scale_d);
 }
 
 }  // namespace hopper

@@ -14,6 +14,16 @@ slot attention's P.V, on the CPU.
   pixel tiles; the partials and the W^T image follow the geometry; both
   passes fit in a block's shared memory for Cin and Cout in {20, 24, 128,
   256}.
+* ``f32_forward_geometry`` and ``f32_backward_geometry``: the split-TF32
+  f32 kernels' tiles.  The forward keeps the bf16 forward's rule (a
+  function of H, W, Cout and the card, never of B) with its 32-channel
+  weight chunks in two parts; the backward's data pass and splits follow
+  the bf16 backward's, its dW pass's K tiles are runs of 32 pixels of an
+  image.  At the 12 frame shapes the forward puts >= 132 blocks on the
+  card, at the 12 training shapes the data and dW passes fill it, split
+  ranges are whole runs, and every f32 kernel fits in a block's shared
+  memory for Cin and Cout in {20, 24, 128, 256}; Cin or Cout > 256 is
+  refused.
 * ``sa_grid`` (``ops/cuda/slot_attention.py``): the number of pixel runs G
   is a function of P and the card, not of B.
 * The kernel's p.v splits the f32 softmax p into three bf16 parts
@@ -31,8 +41,10 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from slotvps_tpu_torch.ops.cuda.deform_conv import (
-    BWD_DW_TILE, MAX_SMEM, Bf16Geometry, bf16_backward_geometry,
-    bf16_forward_geometry, bwd_data_smem, bwd_dw_smem, dw_splits)
+    BWD_DW_TILE, F32_DW_RUN, MAX_SMEM, FwdGeometry, bf16_backward_geometry,
+    bf16_forward_geometry, bwd_data_f32_smem, bwd_data_smem,
+    bwd_dw_f32_smem, bwd_dw_smem, dw_splits, f32_backward_geometry,
+    f32_forward_geometry, fwd_f32_smem)
 from slotvps_tpu_torch.ops.cuda.slot_attention import TILE_PIXELS, sa_grid
 
 SMS = 132
@@ -78,9 +90,9 @@ def test_dcn_geometry_of_ragged_shapes(h, w, c_in, c_out):
 
 
 def test_dcn_geometry_takes_the_largest_tile_that_fills_the_card():
-    assert bf16_forward_geometry(256, 512, 256, SMS) == Bf16Geometry(
+    assert bf16_forward_geometry(256, 512, 256, SMS) == FwdGeometry(
         4, 16, 256, 1, 2048)
-    assert bf16_forward_geometry(64, 128, 256, SMS) == Bf16Geometry(
+    assert bf16_forward_geometry(64, 128, 256, SMS) == FwdGeometry(
         4, 8, 256, 1, 256)
     # a card with fewer SMs keeps the larger tile at 64x128
     assert bf16_forward_geometry(64, 128, 256, 100).tile_w == 16
@@ -167,6 +179,108 @@ def test_dcn_backward_geometry_refuses_wide_channels():
     for c_in, c_out in ((257, 64), (64, 300), (0, 8)):
         with pytest.raises(ValueError, match="Cin, Cout <= 256"):
             bf16_backward_geometry(1, 8, 8, c_in, c_out, SMS)
+
+
+@pytest.mark.parametrize("h,w,c_in,c_out", FRAME_SHAPES)
+def test_f32_forward_fills_the_card_at_every_frame_shape(h, w, c_in, c_out):
+    """The f32 forward's tile is the bf16 forward's (>= 132 blocks, all of
+    Cout a block but at the 32x64 level), its weight image 32-channel
+    chunks in two parts, its shared memory within a block's."""
+    geo = f32_forward_geometry(h, w, c_out, SMS)
+    assert geo[:5] == bf16_forward_geometry(h, w, c_out, SMS)[:5]
+    assert geo.blocks >= SMS and (geo.chunk, geo.parts) == (32, 2)
+    assert geo.n_ctiles == (2 if (h, w) == (32, 64) else 1)
+    assert geo.wimg_elems(c_in) == (geo.n_ctiles * 9 * -(-c_in // 32) * 2
+                                    * geo.n_tile * 32)
+    assert fwd_f32_smem(geo.n_tile) <= MAX_SMEM
+
+
+def test_f32_forward_shared_memory():
+    """2 ring stages of 2 x 32 KB of weights and a 9,216-byte A tile at
+    256 output channels a block, 4 below, then the consumers' per-tap sums
+    (64 x Cout f32), the barriers and the tile's offsets."""
+    assert fwd_f32_smem(256) == (1024 + 2 * (65536 + 9216) + 65536 + 32
+                                 + 4608)
+    assert fwd_f32_smem(128) == (1024 + 4 * (32768 + 9216) + 32768 + 64
+                                 + 4608)
+    assert fwd_f32_smem(64) == (1024 + 4 * (16384 + 9216) + 16384 + 64
+                                + 4608)
+    assert max(fwd_f32_smem(n) for n in (64, 128, 256)) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("h,w,c_in,c_out", TRAIN_SHAPES)
+def test_f32_backward_fills_the_card_at_every_training_shape(h, w, c_in,
+                                                            c_out):
+    """The f32 backward at B = 2: the data pass puts a block on every SM
+    with all of Cin a block; the dW pass keeps all of Cout a block and
+    fills whole waves (the bf16 splits: P5 128 -> 128 one wave of 126)."""
+    geo = f32_backward_geometry(2, h, w, c_in, c_out, SMS)
+    assert geo.dtype == "float32"
+    assert geo.data_blocks >= SMS and geo.nci >= c_in and geo.nc >= c_out
+    assert geo.dw_tiles == 2 * -(-h * w // F32_DW_RUN)
+    waves = -(-geo.dw_blocks // SMS)
+    fill = geo.dw_blocks / (waves * SMS)
+    assert fill == 1.0 or (fill > 0.95 and waves == 1), (geo, fill)
+    bf = bf16_backward_geometry(2, h, w, c_in, c_out, SMS)
+    assert (geo.tile_h, geo.tile_w, geo.splits) == (bf.tile_h, bf.tile_w,
+                                                    bf.splits)
+
+
+@pytest.mark.parametrize("b,h,w,c_in,c_out", [
+    (2, 200, 400, 256, 256), (2, 25, 50, 128, 128), (2, 13, 70, 256, 256),
+    (1, 9, 40, 20, 24), (1, 5, 7, 8, 4), (2, 6, 9, 24, 20)])
+def test_f32_backward_split_ranges_are_whole_runs(b, h, w, c_in, c_out):
+    """The splits cover the batch's runs of 32 pixels in order, each split
+    a non-empty range of whole runs; the scratch sizes follow: the W^T
+    image (32-channel chunks of Cout, two parts), g^T's two parts with H*W
+    rounded up to 4 (16-byte rows for the TMA unit), the partials."""
+    geo = f32_backward_geometry(b, h, w, c_in, c_out, SMS)
+    ranges = geo.split_ranges()
+    assert len(ranges) == geo.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == geo.dw_tiles
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+    assert geo.wimg_elems(c_out) == 9 * -(-c_out // 32) * 2 * geo.nci * 32
+    assert geo.gt_elems(b, h, w, c_out) == 2 * b * c_out * -(-h * w // 4) * 4
+    assert geo.part_elems(c_in, c_out) == geo.splits * 9 * c_in * c_out
+
+
+@pytest.mark.parametrize("shapes", [
+    [(2, 200, 400), (1, 400, 400), (4, 100, 400)],
+    [(2, 25, 50), (1, 50, 50), (2, 50, 25)],
+])
+def test_f32_backward_tiles_do_not_depend_on_the_batch(shapes):
+    """The dW splits (and so dW's order of sums) follow B*H*W, Cin and the
+    card; a dW run is 32 pixels of one image whatever B."""
+    for c_in in (20, 128, 256):
+        geos = [f32_backward_geometry(b, h, w, c_in, c_out, SMS)
+                for b, h, w in shapes for c_out in (24, 128, 256)]
+        assert len({g.splits for g in geos}) == 1
+        for (b, h, w), g in zip([s for s in shapes for _ in range(3)], geos):
+            assert g.dw_tiles == b * -(-h * w // F32_DW_RUN)
+
+
+@pytest.mark.parametrize("c_in", [20, 24, 128, 256])
+@pytest.mark.parametrize("c_out", [20, 24, 128, 256])
+def test_f32_backward_shared_memory_fits(c_in, c_out):
+    """The data pass (g's tile in 32-channel boxes, 2 W^T stages of 2 x 32
+    KB at 256 input channels, else 3) and the dW pass (3 stages of 2 x 32
+    KB of g^T and a 9,216-byte sample tile at 256 output channels, else 4)
+    fit in a block's 232,448 bytes."""
+    geo = f32_backward_geometry(2, 25, 50, c_in, c_out, SMS)
+    smem = geo.smem(c_out)
+    assert smem == {"data": bwd_data_f32_smem(geo.nci, c_out),
+                    "dw": bwd_dw_f32_smem(geo.nc)}
+    assert smem["data"] <= MAX_SMEM and smem["dw"] <= MAX_SMEM
+    assert bwd_data_f32_smem(256, 256) == (1024 + 8 * 8192 + 2 * 65536
+                                           + 4608 + 12 * 8)
+    assert bwd_dw_f32_smem(256) == 1024 + 3 * (65536 + 9216) + 48
+
+
+def test_f32_backward_geometry_refuses_wide_channels():
+    for c_in, c_out in ((257, 64), (64, 300), (0, 8)):
+        with pytest.raises(ValueError, match="Cin, Cout <= 256"):
+            f32_backward_geometry(1, 8, 8, c_in, c_out, SMS)
 
 
 @pytest.mark.parametrize("n_pix", [1, 33, 2048, 4133, 8192, 32768, 131072])

@@ -1,9 +1,10 @@
 """The Hopper kernels against their plain PyTorch versions, on the card:
 the DCN kernel in f32 and bf16 (forward, the bf16 forward's f32 output,
-the backward and its autograd Function; the bf16 forward at the largest
-level and its batch invariance; the bf16 backward's wgmma passes at B = 2
-with ragged channels and widths, and its dW for a one-hot g, bit for bit
-the rounded samples), the five fused-postprocess
+the backward and its autograd Function; the forward at the largest level
+and its batch invariance, in both dtypes; the backward's wgmma passes at
+B = 2 with ragged channels and widths, and its dW for a one-hot g: bit for
+bit the rounded samples in bf16, the samples to the split-TF32 product's
+precision in f32), the five fused-postprocess
 kernels (theta, claim, argmax with and without its runner-up map, repair,
 hist, sseg), their K-minor entries (theta, claim and argmax-areas on
 [h, w, K] masks), the claim-scan kernel and the slot-attention kernel
@@ -17,7 +18,8 @@ machine without JAX:
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: DCN max |kernel - plain| <= 1e-4 * max |plain| in f32 (sums
-taken in another order) and <= 1e-2 * max |plain| in bf16 (the same three
+taken in another order, each f32 product as three TF32 products: ~2**-21
+of a product) and <= 1e-2 * max |plain| in bf16 (the same three
 bf16 rounding points; a sum in another order moves a rounded value by one
 bf16 ulp now and then), for each of the backward's dx, doff and dW too
 (each summed in a fixed order: equal from run to run); slot attention
@@ -160,7 +162,7 @@ def test_bf16_kernel_is_the_same_under_another_tile(cuda_device,
         own = deform_conv2d_hopper(x, off, wt, 4)
         monkeypatch.setattr(
             hdc, "bf16_forward_geometry",
-            lambda h, w, c_out, n_sm: hdc.Bf16Geometry(
+            lambda h, w, c_out, n_sm: hdc.FwdGeometry(
                 2, 8, 64, -(-c_out // 64), 0))
         other = deform_conv2d_hopper(x, off, wt, 4)
     torch.cuda.synchronize()
@@ -329,6 +331,111 @@ def test_bf16_backward_dw_of_a_one_hot_g(cuda_device, c_in, c_out):
 
 
 @pytest.mark.cuda
+def test_f32_kernel_at_the_largest_level(cuda_device):
+    """P2 of a 1024x2048 frame, 256 -> 256, at B = 1: the 64-pixel tile
+    with all 256 output channels a block (two consumer warpgroups)."""
+    x, off, wt = _case(cuda_device, 1, 256, 512, 256, 256, 2)
+    with torch.no_grad():
+        out = deform_conv2d_hopper(x, off, wt, 2)
+        ref = deform_conv2d(x, off, wt, padding=1, max_displacement=2)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out", [(20, 24), (24, 20), (256, 256)])
+def test_f32_kernel_is_batch_invariant(cuda_device, c_in, c_out):
+    """At ragged and full widths (13x70 pixels): each image of a batch of
+    2 gets the bits it gets alone, two runs are equal, and the batch is
+    within 1e-4 of the plain version."""
+    x, off, wt = _case(cuda_device, 2, 13, 70, c_in, c_out, 3)
+    with torch.no_grad():
+        both, again = (deform_conv2d_hopper(x, off, wt, 3) for _ in "ab")
+        alone = [deform_conv2d_hopper(x[i:i + 1].contiguous(),
+                                      off[i:i + 1].contiguous(), wt, 3)
+                 for i in range(2)]
+        ref = deform_conv2d(x, off, wt, padding=1, max_displacement=3)
+    torch.cuda.synchronize()
+    assert torch.equal(both, again)
+    for i in range(2):
+        assert torch.equal(both[i:i + 1], alone[i])
+    assert float((both - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_f32_kernel_is_the_same_under_another_tile(cuda_device,
+                                                   monkeypatch):
+    """A 64x128 image, 256 -> 256, at its own tile (4x8 pixels, all 256
+    channels a block: two consumer warpgroups) and at 2x8 pixels with 64
+    channels a block (one): the same bits."""
+    from slotvps_tpu_torch.ops.cuda import deform_conv as hdc
+
+    x, off, wt = _case(cuda_device, 1, 64, 128, 256, 256, 4)
+    with torch.no_grad():
+        own = deform_conv2d_hopper(x, off, wt, 4)
+        monkeypatch.setattr(
+            hdc, "f32_forward_geometry",
+            lambda h, w, c_out, n_sm: hdc.FwdGeometry(
+                2, 8, 64, -(-c_out // 64), 0, 32, 2))
+        other = deform_conv2d_hopper(x, off, wt, 4)
+    torch.cuda.synchronize()
+    assert hdc.f32_forward_geometry(64, 128, 256, 132).n_tile == 64
+    assert torch.equal(own, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 9, 40, 20, 24, 3),       # ragged Cin and Cout: partial chunks, no
+                                 # 16-byte x or ds access
+    (2, 13, 70, 256, 256, 2),    # ragged width: edge tiles and runs
+    (2, 6, 9, 24, 20, 1),        # 24 -> 20; H*W = 54: g^T rows padded
+    (2, 5, 7, 8, 6, 2),          # Cout not a multiple of 4: g padded
+])
+def test_f32_backward_at_batch_two(cuda_device, shape):
+    """The split-TF32 backward at B = 2 against the plain f32 backward (dx,
+    doff and dW within 1e-4 of max|ref|), equal in two runs."""
+    b, h, w, c, co, halo = shape
+    x, off, wt = _case(cuda_device, b, h, w, c, co, halo)
+    g = torch.randn((b, h, w, co), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3))
+    out = dcn_backward_hopper(x, off, wt, g, halo, torch.float32)
+    again = dcn_backward_hopper(x, off, wt, g, halo, torch.float32)
+    ref = deform_conv2d_backward(x, off, wt, g, halo, torch.float32)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dx", "doff", "dW"), out, ref):
+        err = float((a - r).abs().max())
+        assert err <= 1e-4 * float(r.abs().max()), (name, err)
+    for a, b_ in zip(out, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out", [(20, 24), (256, 256)])
+def test_f32_backward_dw_of_a_one_hot_g(cuda_device, c_in, c_out):
+    """With g one-hot at one (pixel, output channel), dW's column of that
+    channel is the pixel's 9 x Cin samples (times 1: hi + lo of each
+    sample, within 2**-21 of it) and every other column is exactly 0: the
+    kernel's dW equals the plain backward's to 1e-6 of its max (a
+    transposed operand would move the samples to other rows or
+    columns)."""
+    b, h, w, halo = 2, 11, 37, 3
+    x, off, wt = _case(cuda_device, b, h, w, c_in, c_out, halo)
+    g = torch.zeros((b, h, w, c_out), device=cuda_device)
+    at, co = (1, 5, 21), c_out - 3
+    g[at + (co,)] = 1.0
+    dw = dcn_backward_hopper(x, off, wt, g, halo, torch.float32)[2]
+    ref = deform_conv2d_backward(x, off, wt, g, halo, torch.float32)[2]
+    torch.cuda.synchronize()
+    others = torch.ones(c_out, dtype=torch.bool, device=cuda_device)
+    others[co] = False
+    assert float(dw[..., others].abs().max()) == 0.0
+    scale = float(ref[..., co].abs().max())
+    assert scale > 0
+    assert float((dw - ref).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
 def test_autograd_function_runs_the_backward_kernel(cuda_device):
     """deform_conv2d_hopper with gradients on the card: one forward and
     one backward launch, gradients as the backward wrapper gives them, in
@@ -428,8 +535,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
             deform_conv2d_hopper(x, off.cpu(), wt, 2)
         with pytest.raises(ValueError, match="g "):
             dcn_backward_hopper(x, off, wt, x, 2)
-        with pytest.raises(ValueError, match="multiple of 4"):
-            deform_conv2d_hopper(x, off, wt[..., :6].contiguous(), 2)
+        with pytest.raises(ValueError, match="Cin, Cout <= 256"):
+            wide = torch.zeros((1, 6, 8, 300), device=cuda_device)
+            dcn_backward_hopper(wide, off, torch.zeros(
+                (3, 3, 300, 8), device=cuda_device), x[..., :8].contiguous(),
+                2)
 
 
 def _postproc_case(dev, k, h, w, seed=0):
