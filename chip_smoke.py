@@ -14,7 +14,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      passes in bf16 and in f32, slot attention's pass 1) with its
      registers, dynamic shared memory and spills from ptxas; each DCN
      kernel's shared memory as the wrapper states it against the
-     library's.
+     library's; the same lines for the two persistent claim kernels
+     (claim_scan_kernel, claim_kernel; one instance per bit-word width)
+     and their shared memory as claim_geometry states it against the
+     libraries'.
   3. kernels  — each kernel against its plain PyTorch version on the card,
      with CUDA-event times of both and the bound: the DCN kernel in f32 and
      in bf16 at the 12 (tower block, FPN level) shapes of a 1024x2048
@@ -23,6 +26,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      so that repair has dirty tiles; sseg on [256, 512, 19] quarter-res
      logits with ties; slot attention at the decoder's four pixel counts;
      argmax with its runner-up map (top2) and hist at K = 64.
+     The claim loops' edge cases (claim_cases): more than 32 valid things,
+     K = 127, all-0 and all-1 planes, B = 2 with different numbers of
+     valid things, and batches past the shared-memory geometry (the owner
+     tile, then the bit words in device memory): the claim scan on
+     contiguous and K-minor planes, the theta claim on slot-major and
+     K-minor masks, each bit-identical to its plain version, equal in two
+     runs, one launch a call.
      Batch invariance: the bf16 and the f32 DCN at a P3 shape with B = 2
      against each image alone, slot attention with B = 2 at P = 32768
      against each batch element alone, bit for bit, and two runs equal.
@@ -341,6 +351,10 @@ def phase_build():
                                       slot_attention.LIBRARY):
         log("build", json.dumps(row))
     check_dcn_smem()
+    for row in claim_kernel_resources(claim_scan.LIBRARY,
+                                      postproc_v3.LIBRARY):
+        log("build", json.dumps(row))
+    check_claim_smem()
     return {name: secs for name, (_, secs) in built.items()}
 
 
@@ -359,39 +373,46 @@ WGMMA_KERNELS = (
     ("slot_attn_partial_kernel", lambda lib, n: lib.sa_smem_bytes(n)))
 
 
+def ptxas_entries(lib):
+    """(mangled name, registers, stack bytes, spill stores, spill loads) of
+    each kernel entry in a library's ptxas report."""
+    entries, name, props = [], None, (0, 0, 0)
+    for line in lib.ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m and name:
+            props = tuple(map(int, m.groups()))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries.append((name, int(m.group(1)), *props))
+            name = None
+    return entries
+
+
 def wgmma_kernel_resources(*libs):
     """Registers, spills and dynamic shared memory of every instance of the
     wgmma kernels, from their libraries' ptxas reports."""
     rows = []
     for lib in libs:
         handle = lib.load()
-        name = None
-        for line in lib.ptxas.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                name = m.group(1)
-                continue
-            kern = next((k for k in WGMMA_KERNELS if name and k[0] in name),
-                        None)
+        for name, regs, stack, st, ld in ptxas_entries(lib):
+            kern = next((k for k in WGMMA_KERNELS if k[0] in name), None)
             if kern is None:
                 continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m:
-                stack, st, ld = map(int, m.groups())
-                continue
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                tmpl = re.search(kern[0] + r"ILi(\d+)E(\w*?)E", name)
-                width = int(tmpl.group(1))
-                out = ("bf16" if "bfloat16" in tmpl.group(2) else "f32"
-                       if tmpl.group(2) == "f" else "")
-                rows.append(dict(
-                    kernel=f"{kern[0]}<{width}{', ' + out if out else ''}>",
-                    registers=int(m.group(1)), spill_stores=st,
-                    spill_loads=ld, stack_bytes=stack,
-                    dynamic_smem_bytes=kern[1](handle, width)))
-                name = None
+            tmpl = re.search(kern[0] + r"ILi(\d+)E(\w*?)E", name)
+            width = int(tmpl.group(1))
+            out = ("bf16" if "bfloat16" in tmpl.group(2) else "f32"
+                   if tmpl.group(2) == "f" else "")
+            rows.append(dict(
+                kernel=f"{kern[0]}<{width}{', ' + out if out else ''}>",
+                registers=regs, spill_stores=st, spill_loads=ld,
+                stack_bytes=stack,
+                dynamic_smem_bytes=kern[1](handle, width)))
     if len(rows) != 23:
         raise AssertionError(
             f"ptxas reported {len(rows)} wgmma kernel instances, not 23 (6 "
@@ -421,6 +442,54 @@ def check_dcn_smem():
                                  "forward, dW bf16 / f32, data bf16 / f32 at "
                                  f"Cout 20, 24, 128, 256): library {got}, "
                                  f"wrapper {want}")
+
+
+# the persistent claim kernels: one instance per bit word (uint8, uint16,
+# uint32 for chunks of <= 8, 16, 32 valid things)
+CLAIM_WORDS = {"h": "uint8_t", "t": "uint16_t", "j": "uint32_t"}
+
+
+def claim_kernel_resources(*libs):
+    """Registers, spills and stack of each instance of the two claim
+    kernels, from their libraries' ptxas reports (their shared memory is
+    dynamic: claim_geometry's)."""
+    rows = []
+    for lib in libs:
+        lib.load()
+        for name, regs, stack, st, ld in ptxas_entries(lib):
+            kern = re.search(r"\d+(claim_scan_kernel|claim_kernel)I([htj])E",
+                             name)
+            if kern:
+                rows.append(dict(
+                    kernel=f"{kern.group(1)}<{CLAIM_WORDS[kern.group(2)]}>",
+                    registers=regs, spill_stores=st, spill_loads=ld,
+                    stack_bytes=stack))
+    if len(rows) != 6:
+        raise AssertionError(f"ptxas reported {len(rows)} claim kernel "
+                             "instances, not 6 (two kernels x three word "
+                             "widths)")
+    return rows
+
+
+def check_claim_smem():
+    """claim_geometry's statement of a claim kernel's shared memory
+    (claim_smem, tested on the CPU) equals the libraries' at each plan."""
+    from slotvps_tpu_torch.ops.cuda import claim_scan as cs
+    from slotvps_tpu_torch.ops.cuda import postproc_v3 as pv3
+
+    scan, v3 = cs.LIBRARY.load(), pv3.LIBRARY.load()
+    got, want = [], []
+    for b, k, run in ((1, 100, 15888), (4, 127, 15888), (8, 3, 15888),
+                      (220, 127, 1024)):
+        for chunk, own, bits in cs.CLAIM_PLANS:
+            got += [scan.cs_claim_smem(b, k, run, chunk, own, bits),
+                    v3.pp_claim_smem(k, run, chunk, own, bits)]
+            want += [cs.claim_smem(b, k, run, chunk, own, bits),
+                     cs.claim_smem(1, k, run, chunk, own, bits,
+                                   pv3.CLAIM_STAGE)]
+    if got != want:
+        raise AssertionError(f"claim kernels' shared memory: libraries "
+                             f"{got}, wrappers {want}")
 
 
 def _cuda_ms(fn, n=10, warmup=2):
@@ -1035,9 +1104,8 @@ def expected_launches(cfg, results, steps=None):
     per frame on quarter-res logits, slot attention one per decoder stage
     and frame of the pair per decoder call (one per frame, or per lockstep
     ``steps`` of a batched run), and the postprocess of the path's impl
-    per frame: fused, theta and argmax one each, the claim loop one per
-    valid thing slot plus one, repair one per small-area iteration;
-    "pallas", the claim scan one per valid thing slot plus one."""
+    per frame: fused, theta, the claim loop and argmax one each, repair
+    one per small-area iteration; "pallas", the claim scan one."""
     m = cfg.model
     n = len(results)
     calls = n if steps is None else steps
@@ -1048,13 +1116,12 @@ def expected_launches(cfg, results, steps=None):
     if m.slot_head.retriever_impl == "pallas":
         want["slot_attention_hopper"] = \
             2 * sum(m.slot_head.per_dh_num_heads) * calls
-    claims = sum(r.n_claim + 1 for r in results)
     if m.postprocess.impl == "pallas":
-        want["claim_scan_hopper"] = claims
+        want["claim_scan_hopper"] = n
     elif m.postprocess.impl == "fused":
         if m.semantic_head.fused_sseg:
             want["sseg_hopper"] = n
-        want.update(theta_hopper=n, argmax_hopper=n, claim_hopper=claims,
+        want.update(theta_hopper=n, argmax_hopper=n, claim_hopper=n,
                     repair_hopper=sum(r.n_loop for r in results))
     return want
 
@@ -1275,7 +1342,7 @@ def phase_stages(model, cfg, frames, label="bf16"):
     for kern in ("dcn_fwd_f32_kernel", "dcn_fwd_bf16_kernel",
                  "slot_attn_partial_kernel", "slot_attn_reduce_kernel",
                  "sseg_kernel", "theta_kernel", "claim_kernel",
-                 "argmax_kernel"):
+                 "claim_scan_kernel", "argmax_kernel"):
         hits = [(ms, n) for name, (ms, n) in by_name.items() if kern in name]
         if hits:
             ms, n = map(sum, zip(*hits))
@@ -1682,6 +1749,186 @@ def phase_top2_hist(dev, shape=PP_SHAPES[0], n_valid=PP_VALID, timed=True):
     return rows
 
 
+def _blobs(g, dev, n, h, w):
+    """[n, h, w] f32 smooth seeded noise (blobs of a few cells of 16x16)."""
+    import torch.nn.functional as F
+
+    coarse = torch.randn((n, 1, max(h // 16, 2), max(w // 16, 2)),
+                         generator=g, device=dev)
+    return F.interpolate(coarse, size=(h, w), mode="bilinear",
+                         align_corners=False)[:, 0]
+
+
+def _claim_vectors(dev, k, stuff=(), invalid=()):
+    """labels (things of three classes 11-13, ``stuff`` class 4), is_thing
+    and valid of ``k`` slots."""
+    labels = 11 + torch.arange(k, device=dev) % 3
+    labels[list(stuff)] = 4
+    valid = torch.ones(k, dtype=torch.bool, device=dev)
+    valid[list(invalid)] = False
+    return labels, labels > 10, valid
+
+
+def claim_cases(dev, big=True):
+    """Seeded edge cases of the claim loops, as (label, kind, args, slots,
+    rejected): kind "planes" takes the claim scan (args: planes [B, K, H,
+    W] bool and [B, K] labels, is_thing, valid), "masks" the theta claim
+    (args: low-res masks [K, h, w] f32 and [K] vectors; theta = the plain
+    theta at 0.4); ``slots`` is a range holding every valid thing;
+    ``rejected`` the slots the rule must reject.  More than 32 valid
+    things (40 of 48 slots; 100 of 127) with an all-0 thing (slot 3), an
+    all-1 thing (slot 5, planes only: in the theta form it leaves every
+    other slot without a pixel, so "theta_all1" has it alone) and a copy
+    of a thing of its class (slot 9 of 8); B = 2 with 40 and 9 valid
+    things.  With ``big``, batches past the shared-memory geometry: B = 8
+    at 1024x2048 (the owner tile in device memory), B = 4 at 2048x4096
+    (the bit words too), B = 300 of K = 127 (the videos in groups), masks
+    of 768x1536 and 1024x2048 low-res."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    cases = []
+
+    def planes_of(b, k, h, w):
+        return (_blobs(g, dev, b * k, h, w) > 0.9).reshape(b, k, h, w)
+
+    def edges(x, lab):
+        if x.is_floating_point():             # masks [K, h, w]
+            x[3] = -30.0
+            x[9] = x[8] + 0.01
+        else:                                 # planes [B, K, H, W]
+            x[:, 3] = False
+            x[:, 5] = True
+            x[:, 9] = x[:, 8]
+        lab[9] = lab[8]
+
+    planes = planes_of(2, 48, 96, 160)
+    lab, thing, val = _claim_vectors(dev, 48, stuff=range(40, 48))
+    edges(planes, lab)
+    cases.append(("things40", "planes",
+                  (planes[:1], lab[None], thing[None], val[None]), (0, 40),
+                  [3, 5, 9]))
+    val1 = torch.zeros_like(val)
+    val1[2:11] = True
+    cases.append(("b2_40_and_9", "planes",
+                  (planes, lab.expand(2, -1), thing.expand(2, -1),
+                   torch.stack([val, val1])), (0, 40), [3, 5, 9]))
+    planes = planes_of(1, 127, 64, 96)
+    lab, thing, val = _claim_vectors(dev, 127, stuff=range(3),
+                                     invalid=range(103, 127))
+    edges(planes, lab)
+    cases.append(("k127", "planes",
+                  (planes, lab[None], thing[None], val[None]), (3, 103),
+                  [3, 5, 9]))
+    m = _blobs(g, dev, 48, 24, 40) * 4
+    lab, thing, val = _claim_vectors(dev, 48, stuff=range(40, 48))
+    edges(m, lab)
+    cases.append(("theta_things40", "masks", (m, lab, thing, val), (0, 40),
+                  [3, 9]))
+    m = _blobs(g, dev, 127, 16, 24) * 4
+    lab, thing, val = _claim_vectors(dev, 127, stuff=range(3),
+                                     invalid=range(103, 127))
+    edges(m, lab)
+    cases.append(("theta_k127", "masks", (m, lab, thing, val), (3, 103),
+                  [3, 9]))
+    m = _blobs(g, dev, 8, 16, 24) * 4
+    m[5] = 50.0
+    lab, thing, val = _claim_vectors(dev, 8, stuff=range(4))
+    cases.append(("theta_all1", "masks", (m, lab, thing, val), (4, 8),
+                  [4, 5, 6, 7]))
+    if big:
+        for label, b, k, h, w in (("b8_1024x2048", 8, 3, 1024, 2048),
+                                  ("b4_2048x4096", 4, 2, 2048, 4096)):
+            lab, thing, val = _claim_vectors(dev, k)
+            lab[:] = 11
+            cases.append((label, "planes",
+                          (planes_of(b, k, h, w), lab.expand(b, -1),
+                           thing.expand(b, -1), val.expand(b, -1)), (0, k),
+                          []))
+        # 300 videos of 127 slots, a few valid things each, other ranges
+        b, k = 300, 127
+        lab, thing, val = _claim_vectors(dev, k)
+        val = torch.rand((b, k), generator=g, device=dev) < 0.05
+        val[:, 0] = True
+        cases.append(("b300_k127", "planes",
+                      (planes_of(b, k, 16, 24), lab.expand(b, -1),
+                       thing.expand(b, -1), val), (0, k), []))
+        for label, k, h, w in (("theta_768x1536", 3, 768, 1536),
+                               ("theta_1024x2048", 2, 1024, 2048)):
+            lab, thing, val = _claim_vectors(dev, k)
+            lab[:] = 11
+            cases.append((label, "masks",
+                          (_blobs(g, dev, k, h, w) * 4, lab, thing, val),
+                          (0, k), []))
+    return cases
+
+
+def phase_claim_edges(dev, big=True):
+    """The claim kernels on claim_cases: the claim scan on the planes and
+    on their K-minor copy, the theta claim on slot-major masks and the
+    K-minor entry on [h, w, K] masks, each against its plain version (keep
+    and owner bit-identical), twice (the same both times), one launch a
+    call; the rule rejects each case's ``rejected`` slots and keeps some
+    other thing.  Returns one row a case."""
+    from slotvps_tpu_torch.ops import postproc_v3 as plain
+    from slotvps_tpu_torch.ops.claim_scan import claim_scan
+    from slotvps_tpu_torch.ops.cuda import claim_scan as cs
+    from slotvps_tpu_torch.ops.cuda import postproc_fused as pfu
+    from slotvps_tpu_torch.ops.cuda import postproc_v3 as pv3
+
+    frac = 0.03
+    sms = cs.card_sms(dev) if dev.type == "cuda" else 132
+    rows = []
+    for label, kind, args, slots, rejected in claim_cases(dev, big):
+        if kind == "planes":
+            planes, lab, thing, val = args
+            b, k, h, w = planes.shape
+            geo = cs.claim_geometry(b, h, w, k, sms)
+            ref = claim_scan(planes, lab, thing, val, frac)
+            hwk = planes.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+            calls = [(cs.claim_scan_hopper, (planes, lab, thing, val, frac),
+                      dict(slots=slots)),
+                     (cs.claim_scan_hopper, (hwk, lab, thing, val, frac),
+                      dict(slots=slots))]
+        else:
+            m, lab, thing, val = args
+            k, h, w = m.shape
+            geo = cs.claim_geometry(1, 4 * h, 4 * w, k, sms,
+                                    stage=pv3.CLAIM_STAGE)
+            th = plain.theta(m, val, 0.4)
+            ref = plain.claim(m, th, lab, thing, val, frac)
+            calls = [(pv3.claim_hopper, (m, th, lab, thing, val, frac),
+                      dict(slots=slots)),
+                     (pfu.claim_scan_fused_hopper,
+                      (m.permute(1, 2, 0).contiguous(), th, lab, thing, val,
+                       frac), {})]
+        for fn, a, kw in calls:
+            before = fn.launches
+            first, second = fn(*a, **kw), fn(*a, **kw)
+            _sync(dev)
+            same = [torch.equal(x, y) for x, y in zip(first, ref)] \
+                + [torch.equal(x, y) for x, y in zip(second, first)]
+            if not all(same) or (dev.type == "cuda"
+                                 and fn.launches != before + 2):
+                raise AssertionError(
+                    f"{fn.__name__} on claim case {label} (strides "
+                    f"{tuple(a[0].stride())}): keep and owner equal to the "
+                    f"plain version's and the first run's: {same}; "
+                    f"{fn.launches - before} launches for 2 calls")
+        keep = ref[0].reshape(-1, k)
+        things = (val & thing).reshape(-1, k)
+        row = dict(claim_case=label, kind=kind, shape=list(args[0].shape),
+                   plan=geo._asdict(), things=things.sum(1).tolist(),
+                   kept=(keep & things).sum(1).tolist())
+        log("kernels", json.dumps(row))
+        others = things.clone()
+        others[:, rejected] = False
+        if bool(keep[:, rejected].any()) \
+                or bool(others.any()) != bool((keep & others).any()):
+            raise AssertionError(f"claim case {label} lost its regime: "
+                                 f"{row}")
+        rows.append(row)
+    return rows
+
+
 def _fused_inputs(dev, model, cfg, frame):
     """The two inputs of the K-minor chain, each (label, m_hwk [h, w, K]
     f32, valid, labels, is_thing): FUSED_SHAPE's random-normal masks (every
@@ -1741,9 +1988,8 @@ def phase_fused_chain(dev, model, cfg, frame, timed=True):
     inputs = _fused_inputs(dev, model, cfg, frame)
     chains, launches, _, _ = _run_counted(dev, lambda: [
         _fused_chain(*case[1:], thr, frac) for case in inputs])
-    n_claims = sum(int((case[2] & case[4]).sum()) + 1 for case in inputs)
     want = dict.fromkeys(KERNELS, 0)
-    want.update(theta_fused_hopper=2, claim_scan_fused_hopper=n_claims,
+    want.update(theta_fused_hopper=2, claim_scan_fused_hopper=2,
                 argmax_areas_hopper=2)
     _check_launches("fused_chain", launches, want)
     rows = {}
@@ -1866,6 +2112,28 @@ def _planes_of(model, cfg, frames, dev):
     return seen
 
 
+def kminor_floor_bytes(planes, slots):
+    """Bytes that any kernel reading K-minor planes (slots adjacent bytes)
+    in place must move: the 32-byte sectors holding slots [lo, hi) of each
+    pixel, each once, and the owner map written once."""
+    planes = planes if planes.ndim == 4 else planes[None]
+    b, k, h, w = planes.shape
+    lo, hi = slots
+    if planes.stride(1) != 1 or hi <= lo:
+        return b * h * w
+    p = torch.arange(h * w, device=planes.device, dtype=torch.int64)
+    total = 0
+    for v in range(b):
+        start = planes.data_ptr() + v * planes.stride(0) \
+            + p * planes.stride(3) + lo
+        s0, s1 = start // 32, (start + hi - lo - 1) // 32
+        prev = torch.cat([s0.new_tensor([-1]),
+                          torch.cummax(s1, 0).values[:-1]])
+        total += int((s1 - torch.maximum(s0, prev + 1) + 1).clamp_min(0)
+                     .sum())
+    return 32 * total + b * h * w
+
+
 def phase_claim_scan_kernel(dev, model, cfg, frames, timed=True):
     """The claim-scan kernel against its plain version on the binarized
     planes of real frames of ``cfg``'s path (K = 100 slots at 1024x2048),
@@ -1907,7 +2175,9 @@ def phase_claim_scan_kernel(dev, model, cfg, frames, timed=True):
                    size=[h, w], strides=list(args[0].stride()),
                    slots=list(slots), valid_things=things,
                    kept_things=kept_things, max_abs_err=n_diff,
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by,
+                   kminor_floor_ms=kminor_floor_bytes(args[0], slots)
+                   / HBM_BYTES * 1e3)
         if n_diff or not kept_things:
             log("kernels", json.dumps(row))
             raise AssertionError(f"claim-scan kernel at {label}: {n_diff} "
@@ -2296,6 +2566,7 @@ def main():
     sa_row = phase_slot_attention(dev)
     phase_batch_invariance(dev)
     top2_rows = phase_top2_hist(dev)
+    phase_claim_edges(dev)
     cfg, cfg32 = slice_config(), f32_config()
     model, frames = prepare(dev, cfg)
     results, stats = phase_slice(dev, cfg, model, frames, "bf16")

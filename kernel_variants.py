@@ -8,27 +8,36 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 kernel_variants.py dcn_backward
     python3 kernel_variants.py dcn_f32
     python3 kernel_variants.py dcn_backward_f32
+    python3 kernel_variants.py claim_scan
+    python3 kernel_variants.py claim
 
 Each variant is ``slotvps_tpu_torch/csrc/<kernel>.cu`` with a few text
-replacements (VARIANTS below), compiled with the port's nvcc flags into a
-temporary directory and loaded with ctypes.  Slot attention runs at the
-decoder's two largest pixel counts (q [1, 100, 256], k and v [1, P, 256]
+replacements (VARIANTS below; a replacement of three strings edits the
+named header of ``csrc/`` instead), compiled with the port's nvcc flags
+into a temporary directory and loaded with ctypes.  Slot attention runs at
+the decoder's two largest pixel counts (q [1, 100, 256], k and v [1, P, 256]
 bf16), the bf16 DCN forward at three shapes of a 1024x2048 frame (bf16 in
 and out), the bf16 DCN backward (``dcn_backward``: the same source, its
 passes and their parts) at P2 and P4 of the 800x1600 training crop, B = 2,
 256 -> 256; ``dcn_f32`` and ``dcn_backward_f32`` do the same for the f32
-(split-TF32) forward, f32 in and out, and backward.  One JSON line per (shape, variant): CUDA-event ms (mean of 20
-calls after 3; 10 after 2 for the backward) and the error relative to the
-plain version (the backward: of dx, doff and dW each).  The variants
-that skip work give wrong results on purpose: they tell where the time
-goes.
+(split-TF32) forward, f32 in and out, and backward.  ``claim_scan`` runs
+the persistent claim scan on binarized planes of a 1024x2048 map (K =
+100, 27 valid things in slots 10-36, binarized against theta as the
+postprocess does) in the K-minor layout and contiguous; ``claim`` the
+theta claim at K = 64 on 256x512 low-res masks (30 valid things), slot-
+major and K-minor; each variant also at chunks of 16 ("<variant>_chunk16",
+by the geometry, not the source).  One JSON line per (shape, variant):
+CUDA-event ms (mean of 20 calls after 3; 10 after 2 for the backward)
+and the error relative to the plain version (the backward: of dx, doff
+and dW each; the claim loops: the entries of keep and owner that
+differ).  The variants that skip work give wrong results on purpose:
+they tell where the time goes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -36,9 +45,14 @@ from pathlib import Path
 
 import torch
 
+from slotvps_tpu_torch.ops import postproc_v3 as tv3
+from slotvps_tpu_torch.ops.claim_scan import claim_scan
+from slotvps_tpu_torch.ops.cuda import claim_scan as cs
 from slotvps_tpu_torch.ops.cuda import deform_conv as dc
+from slotvps_tpu_torch.ops.cuda import postproc_v3 as pv3
 from slotvps_tpu_torch.ops.cuda import slot_attention as sa
 from slotvps_tpu_torch.ops.cuda.build import NVCC_FLAGS, _nvcc
+from slotvps_tpu_torch.ops.cuda.claim_scan import claim_geometry
 from slotvps_tpu_torch.ops.deform_conv import (deform_conv2d,
                                                deform_conv2d_backward)
 from slotvps_tpu_torch.ops.slot_attention import slot_attention
@@ -217,11 +231,28 @@ VARIANTS = {"slot_attention": {
                             "tp[i].idx[j])")],
     "dw_flush_64": [("constexpr int TW_FLUSH = 16;",
                      "constexpr int TW_FLUSH = 64;")],
+}, "claim_scan": {
+    "as_is": [],
+    # no pixel work: no bits pass, no claim or count a step; the steps'
+    # barriers and decisions (every slot rejected: n = 0) remain
+    "barriers_only": [
+        ("claim_loop.cuh", "      build(st, nbits);\n"
+         "      count_chunk(a, s, st, nbits);",
+         "      if (nbits < 0) {\n        build(st, nbits);\n"
+         "        count_chunk(a, s, st, nbits);\n      }"),
+        ("claim_loop.cuh", "    claim_and_count(a, s, t > 0 ? t - 1 : -1, st, t);",
+         "    if (st < 0) claim_and_count(a, s, t > 0 ? t - 1 : -1, st, t);")],
+    # the bits pass and its counts, no claim or count a step
+    "bits_only": [
+        ("claim_loop.cuh", "    claim_and_count(a, s, t > 0 ? t - 1 : -1, st, t);",
+         "    if (st < 0) claim_and_count(a, s, t > 0 ? t - 1 : -1, st, t);")],
 }}
+VARIANTS["claim"] = VARIANTS["claim_scan"]
 # kernel variants -> the library whose entry points they load
 SOURCE = {"slot_attention": "slot_attention", "deform_conv": "deform_conv",
           "dcn_backward": "deform_conv", "dcn_f32": "deform_conv",
-          "dcn_backward_f32": "deform_conv"}
+          "dcn_backward_f32": "deform_conv", "claim_scan": "claim_scan",
+          "claim": "postproc_v3"}
 # (B, H, W, Cin, Cout, halo) of the backward's cases: P2 and P4 of the
 # 800x1600 training crop (the reference and the current frame)
 BWD_SHAPES = ((2, 200, 400, 256, 256, 2), (2, 50, 100, 256, 256, 4))
@@ -247,19 +278,22 @@ def _ms(fn, n=20, warmup=3):
 def build(tmp: Path, kernel: str, declare) -> dict:
     """name -> loaded library; every variant compiled at once."""
     base = (CSRC / f"{SOURCE[kernel]}.cu").read_text()
-    for header in CSRC.glob("*.cuh"):
-        shutil.copy(header, tmp)
     procs = {}
     for name, reps in VARIANTS[kernel].items():
-        text = base
-        for old, new in reps:
-            if old not in text:
-                raise SystemExit(f"variant {name}: {old!r} not in source")
-            text = text.replace(old, new)
-        (tmp / f"{name}.cu").write_text(text)
+        var = tmp / name
+        var.mkdir()
+        files = {f"{name}.cu": base}
+        files.update((h.name, h.read_text()) for h in CSRC.glob("*.cuh"))
+        for rep in reps:
+            where, old, new = rep if len(rep) == 3 else (f"{name}.cu", *rep)
+            if old not in files[where]:
+                raise SystemExit(f"variant {name}: {old!r} not in {where}")
+            files[where] = files[where].replace(old, new)
+        for fname, text in files.items():
+            (var / fname).write_text(text)
         procs[name] = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(tmp / f"{name}.so"), str(tmp / f"{name}.cu")],
+             str(var / f"{name}.so"), str(var / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -269,7 +303,7 @@ def build(tmp: Path, kernel: str, declare) -> dict:
         regs = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
                 if "registers" in ln]
         print(json.dumps({"variant": name, "ptxas": regs}), flush=True)
-        lib = ctypes.CDLL(str(tmp / f"{name}.so"))
+        lib = ctypes.CDLL(str(tmp / name / f"{name}.so"))
         declare(lib)
         libs[name] = lib
     return libs
@@ -439,6 +473,90 @@ def run_dcn_backward(libs, dev, stream):
                   flush=True)
 
 
+def _claim_inputs(dev, k, h, w, n_valid, n_stuff, seed):
+    """Seeded low-res masks [K, h, w] in the postprocess's slot order
+    (valid stuff, valid things, invalid), theta at 0.4, and the vectors."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    coarse = torch.randn((1, k, h // 16, w // 16), generator=g,
+                         device=dev) * 4
+    m = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                      align_corners=False)[0]
+    m = (m + torch.randn((k, h, w), generator=g, device=dev) * 0.5) \
+        .contiguous()
+    labels = torch.randint(11, 19, (k,), generator=g, device=dev)
+    labels[:n_stuff] = torch.randint(0, 11, (n_stuff,), generator=g,
+                                     device=dev)
+    valid = torch.arange(k, device=dev) < n_valid
+    theta = tv3.theta(m, valid, 0.4)
+    return m, theta, labels, labels > 10, valid
+
+
+def _claim_run(libs, entry, args, geo, stream, outs, ref, case):
+    """Time each variant's ``entry`` (one video) at ``geo`` and at chunks
+    of 16."""
+    owner, keep = outs
+    counts = torch.empty((3 * keep.shape[-1],), dtype=torch.int32,
+                         device=owner.device)
+    for name, lib in libs.items():
+        for suffix, g in (("", geo), ("_chunk16", geo._replace(chunk=16))):
+            group = (g.group,) if entry == "cs_claim_scan" else ()
+
+            def run(lib=lib, g=g, group=group):
+                rc = getattr(lib, entry)(
+                    *args, g.blocks, g.run, g.chunk, int(g.own_smem),
+                    int(g.bits_smem), *group, owner.data_ptr(),
+                    keep.data_ptr(), counts.data_ptr(), None, stream)
+                if rc:
+                    raise RuntimeError(f"{entry}: " + (
+                        lib.cs_error_string if entry == "cs_claim_scan"
+                        else lib.pp_error_string)(rc).decode())
+            ms = _ms(run)
+            diff = int((keep != ref[0]).sum()) \
+                + int((owner != ref[1]).sum())
+            print(json.dumps({"case": case, "variant": name + suffix,
+                              "ms": ms, "mismatches": diff}), flush=True)
+
+
+def run_claim_scan(libs, dev, stream):
+    m, theta, labels, is_thing, valid = _claim_inputs(dev, 100, 256, 512,
+                                                      37, 10, 4)
+    planes = (tv3.upsample_slots(m) >= theta)[None]
+    del m, theta
+    k, h, w = planes.shape[1:]
+    ref = claim_scan(planes, labels[None], is_thing[None], valid[None],
+                     0.03)
+    geo = claim_geometry(1, h, w, k, _sms(dev))
+    owner = torch.empty((1, h, w), dtype=torch.int8, device=dev)
+    keep = torch.empty((1, k), dtype=torch.bool, device=dev)
+    hwk = planes.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    for case, p in (("k_minor", hwk), ("contiguous", planes)):
+        sb, sk, _, sp = p.stride()
+        args = (p.data_ptr(), sb, sk, sp, labels.data_ptr(),
+                valid.data_ptr(), is_thing.data_ptr(), 0.03, 1, k, h * w, 10,
+                37)
+        _claim_run(libs, "cs_claim_scan", args, geo, stream, (owner, keep),
+                   ref, case)
+
+
+def run_claim(libs, dev, stream):
+    m, theta, labels, is_thing, valid = _claim_inputs(dev, 64, 256, 512, 40,
+                                                      10, 4)
+    k, h, w = m.shape
+    ref = tv3.claim(m, theta, labels, is_thing, valid, 0.03)
+    geo = claim_geometry(1, 4 * h, 4 * w, k, _sms(dev),
+                         stage=pv3.CLAIM_STAGE)
+    owner = torch.empty((4 * h, 4 * w), dtype=torch.int8, device=dev)
+    keep = torch.empty((k,), dtype=torch.bool, device=dev)
+    m_hwk = m.permute(1, 2, 0).contiguous()
+    for case, entry, mm in (("slot_major", "pp_claim", m),
+                            ("k_minor", "pp_claim_hwk", m_hwk)):
+        args = (mm.data_ptr(), theta.data_ptr(), labels.data_ptr(),
+                valid.data_ptr(), is_thing.data_ptr(), 0.03, k, h, w, 10, 40)
+        _claim_run(libs, entry, args, geo, stream, (owner, keep), ref, case)
+
+
 def main():
     kernel = sys.argv[1] if len(sys.argv) > 1 else "slot_attention"
     if kernel not in VARIANTS:
@@ -447,11 +565,13 @@ def main():
         raise SystemExit("kernel_variants: needs a CUDA device")
     setup_precision()
     dev = torch.device("cuda")
-    mod = sa if kernel == "slot_attention" else dc
+    mod = {"slot_attention": sa, "claim_scan": cs,
+           "claim": pv3}.get(kernel, dc)
     run = {"slot_attention": run_slot_attention,
            "deform_conv": run_deform_conv,
            "dcn_backward": run_dcn_backward, "dcn_f32": run_dcn_f32,
-           "dcn_backward_f32": run_dcn_backward_f32}[kernel]
+           "dcn_backward_f32": run_dcn_backward_f32,
+           "claim_scan": run_claim_scan, "claim": run_claim}[kernel]
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), kernel, mod._declare)
         run(libs, dev, torch.cuda.current_stream().cuda_stream)

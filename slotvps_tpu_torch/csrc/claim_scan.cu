@@ -10,48 +10,44 @@
 // library is built without fast-math), exceed the fraction threshold;
 // otherwise it claims its unowned pixels.
 //
-// Design.  The loop over slots is sequential: slot i's decision needs
-// whole-map counts taken after every earlier claim.  The 2 MB int8 owner
-// map of a 1024x2048 frame does not fit in the 227 KB of shared memory a
-// block can have; it does fit in the 50 MB L2.  So, as claim_kernel in
-// postproc_v3.cu: one launch per slot of the range the caller gives (the
-// valid thing slots), plus one that applies the last claim, with no host
-// sync in the loop.  Launch i applies the pending claim of the slot kept
-// before it and counts slot i's pixels and same-class overlap (16 pixels a
-// thread, block reductions, one atomic per block); the block that takes
-// the last ticket decides keep and sets the pending slot.  The batch rides
-// grid.y: one launch serves slot i of all B videos; a video for which slot
-// i is not a valid thing leaves the launch at once and keeps its pending
-// claim for its next launch.  Class equality reads the claimer's label
-// (labels[owner]), so no owner-class map is kept.
+// Design: one persistent cooperative launch a call (claim_loop.cuh): a
+// block a streaming multiprocessor owns a run of pixels of every video,
+// keeps its owner tile and one bit word a pixel in shared memory, builds
+// the words of up to 32 valid things in one pass over the planes, and
+// takes one step a valid thing with a grid-wide barrier between steps.
+// The batch is a loop inside the block: the steps are those of the video
+// with the most valid things.  No host sync, no launch a slot.
 //
 // Memory layout.  The planes are read at any strides with one pixel stride
-// (H*W pixels at stride sp): the contiguous [K, H, W] bytes (sp = 1, 16-byte
-// loads) or the K-minor [H, W, K] stack that the postprocess builds (sp = K,
-// one byte a pixel).  chip_smoke.py times both on the planes of a real
-// 1024x2048 frame (K = 100, 27 valid things; NVIDIA H100 80GB HBM3,
-// 700.00 W, two runs): the K-minor read costs each launch a 32-byte sector
-// per pixel for one byte, twice (the slot's plane and the pending one),
-// 2.36 / 2.39 ms a frame; the contiguous copy alone (210 MB in, 210 MB out,
-// as torch's permuted copy does it) takes 4.68 / 4.93 ms, and the kernel
-// on the copy 0.45 / 0.33 ms.  So the postprocess hands the kernel the
-// K-minor stack as it is.
+// (H*W pixels at stride sp).  The bits pass reads them two ways:
+//  - K-minor (sk = 1, sp >= K: the [H, W, K] stack that the postprocess
+//    builds, read in place): a thread a pixel reads the aligned 16-byte
+//    pieces that hold the pixel's bytes of the chunk's slot range,
+//    neighbouring threads on neighbouring pixels, and skips the pieces
+//    that are all zero; each sector is read once a call;
+//  - otherwise 16 pixels a thread, one slot after the other: 16-byte loads
+//    along a plane when it is contiguous (sp = 1), byte loads else.
+// The earlier kernel (one launch a slot, each walking all pixels and
+// re-reading the pending slot's plane) took 2.36-2.63 ms on the K-minor
+// planes of a real 1024x2048 frame (K = 100, 27 valid things) and
+// 0.32-0.45 on a contiguous copy (PERF.md).
 //
 // What bounds it (H100 SXM at 700 W, 3.35 TB/s of HBM): the bytes of the
 // valid-thing planes read once and the owner map written once, ~2 MB a
-// valid thing at 1024x2048: 0.0175 ms for the frame above.  On the K-minor
-// stack the sector reads take the time (~130 MB a launch); on contiguous
-// planes the launch gaps and the re-read of the pending plane (from L2) do.
-// A persistent grid with a grid-wide barrier per slot would remove the
-// gaps (a later optimisation).
+// valid thing at 1024x2048: 0.0175 ms for that frame.  On the K-minor stack
+// the sectors that hold [lo, hi) of each pixel set the floor of any kernel
+// reading it in place (a sector per 32 bytes: ~2-4 a pixel); then the ~28
+// grid barriers, 1-3 us each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "claim_loop.cuh"
+
 namespace {
 
-constexpr int CT = 256;    // threads per block
-constexpr int PPT = 16;    // pixels per thread
+constexpr int PPT = 16;    // pixels a thread in the strided bits pass
+constexpr int PIECES = 4;  // 16-byte pieces a round in the K-minor pass
 
 union Bytes16 {
   int4 v;
@@ -74,144 +70,171 @@ __device__ __forceinline__ void load_run(const uint8_t* __restrict__ src,
     for (int c = 0; c < PPT; ++c) dst[c] = u.b[c];
     return;
   }
+#pragma unroll
   for (int c = 0; c < PPT; ++c) dst[c] = c < cnt ? src[(size_t)c * sp] : 0;
 }
 
-__device__ __forceinline__ int block_sum(int x, int* s_red) {
+struct Planes {
+  const uint8_t* p;
+  long long sb, sk, sp;
+};
+
+// The words of steps cbase .. cbase+nbits-1 of every video from planes
+// whose slots are adjacent bytes (sk = 1, sp >= K): a thread a pixel, whose
+// word it writes alone; it reads the aligned 16-byte pieces that hold the
+// pixel's bytes of [smin, smax] (the chunk's first and last slot), PIECES
+// at a time, and skips the pieces that are all zero.  Neighbouring threads
+// read neighbouring pixels, so each sector comes from device memory once.
+template <typename Word>
+__device__ void bits_k_minor(const claim::Args& a,
+                             const claim::Block<Word>& s, Planes pl,
+                             int cbase, int nbits) {
+  for (int b = 0; b < s.nv; ++b) {
+    const int nb = max(0, min(nbits, s.cnt[b] - cbase));
+    Word* w = s.bits(b);
+    if (nb == 0) {
+      for (int i = threadIdx.x; i < s.np; i += blockDim.x) w[i] = 0;
+      continue;
+    }
+    const int smin = s.list[b * a.K + cbase];
+    const int smax = s.list[b * a.K + cbase + nb - 1];
+    const int8_t* pos = s.pos + b * a.K;
+    const uint8_t* base =
+        pl.p + (s.v0 + b) * pl.sb + (long long)s.p0 * pl.sp;
+    for (int i = threadIdx.x; i < s.np; i += blockDim.x) {
+      const uintptr_t px = reinterpret_cast<uintptr_t>(base + i * pl.sp);
+      const uintptr_t last = px + smax;
+      unsigned acc = 0;
+      for (uintptr_t s0 = (px + smin) & ~(uintptr_t)15; s0 <= last;
+           s0 += PIECES * PPT) {
+        Bytes16 u[PIECES];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = x;
+        for (int q = 0; q < PIECES; ++q)
+          u[q].v = s0 + PPT * q <= last
+                       ? *reinterpret_cast<const int4*>(s0 + PPT * q)
+                       : make_int4(0, 0, 0, 0);
+#pragma unroll
+        for (int q = 0; q < PIECES; ++q) {
+          if ((u[q].v.x | u[q].v.y | u[q].v.z | u[q].v.w) == 0) continue;
+          const int k0 = (int)(s0 + PPT * q - px);
+#pragma unroll
+          for (int c = 0; c < PPT; ++c) {
+            const int k = k0 + c;
+            if (u[q].b[c] && k >= smin && k <= smax) {
+              const int j = pos[k] - cbase;
+              if (j >= 0 && j < nb) acc |= 1u << j;
+            }
+          }
+        }
+      }
+      w[i] = (Word)acc;
+    }
+  }
   __syncthreads();
-  int total = 0;
-  if (threadIdx.x == 0)
-    for (int wi = 0; wi < (int)(blockDim.x >> 5); ++wi) total += s_red[wi];
-  return total;   // valid in thread 0 only
 }
 
-// One step of the claim loop for slot `slot` of every video (grid.y = B).
-// scratch: [B, K] pixel counts, [B, K] same-class overlaps, [B, K] block
-// tickets, then [B] pending = 1 + the slot whose claim is still to be
-// applied (0 = none).  slot = -1 only applies the pending claims.
-__global__ void __launch_bounds__(CT)
-claim_scan_kernel(const uint8_t* __restrict__ planes, long long sb,
-                  long long sk, long long sp,
-                  const int32_t* __restrict__ labels,
-                  const uint8_t* __restrict__ flags, float frac, int B,
-                  int K, int HW, int slot, int8_t* __restrict__ owner,
-                  uint8_t* __restrict__ keep, int32_t* scratch) {
-  __shared__ int s_labels[128];
-  __shared__ int s_red[2][CT / 32];
-  const int b = blockIdx.y;
-  const size_t bk = (size_t)b * K;
-  if (slot >= 0 && !flags[bk + slot]) return;   // nothing to do for video b
-  int32_t* cnt_n = scratch + bk;
-  int32_t* cnt_o = scratch + (size_t)B * K + bk;
-  int32_t* ticket = scratch + 2 * (size_t)B * K + bk;
-  int32_t* pending = scratch + 3 * (size_t)B * K + b;
-  const int p = *pending - 1;
-  if (slot < 0 && p < 0) return;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    s_labels[k] = labels[bk + k];
+// The same words from planes at any strides: 16 pixels a thread, whose
+// words it zeroes and then ORs each slot of the chunk into where the
+// slot's byte is set (the words stay in shared memory, not in registers).
+template <typename Word>
+__device__ void bits_strided(const claim::Args& a,
+                             const claim::Block<Word>& s, Planes pl,
+                             int cbase, int nbits) {
+  for (int b = 0; b < s.nv; ++b) {
+    const int nb = max(0, min(nbits, s.cnt[b] - cbase));
+    const uint8_t* list = s.list + b * a.K + cbase;
+    const uint8_t* pb = pl.p + (s.v0 + b) * pl.sb;
+    Word* w = s.bits(b);
+    for (int g = threadIdx.x; g * PPT < s.np; g += blockDim.x) {
+      const int i0 = g * PPT;
+      const int cnt = min(PPT, s.np - i0);
+      const uint8_t* src = pb + (long long)(s.p0 + i0) * pl.sp;
+      for (int c = 0; c < cnt; ++c) w[i0 + c] = 0;
+      for (int j = 0; j < nb; ++j) {
+        uint8_t by[PPT];
+        load_run(src + list[j] * pl.sk, pl.sp, cnt, by);
+#pragma unroll
+        for (int c = 0; c < PPT; ++c)
+          if (by[c]) w[i0 + c] |= (Word)(1u << j);
+      }
+    }
+  }
   __syncthreads();
+}
 
-  const uint8_t* pb = planes + (size_t)b * sb;
-  int8_t* ob = owner + (size_t)b * HW;
-  const size_t px = ((size_t)blockIdx.x * CT + threadIdx.x) * PPT;
-  int n = 0, ovl = 0;
-  if (px < (size_t)HW) {
-    const int cnt = (int)min((size_t)PPT, (size_t)HW - px);
-    int8_t* op = ob + px;
-    Bytes16 o;
-    const bool vec_o = cnt == PPT && aligned16(op);
-    if (vec_o)
-      o.v = *reinterpret_cast<const int4*>(op);
+template <typename Word>
+__global__ void __launch_bounds__(claim::THREADS, 1)
+claim_scan_kernel(claim::Args a, Planes pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool k_minor = pl.sk == 1 && pl.sp >= a.K;
+  claim::run_groups<Word>(a, smem, [&](const claim::Block<Word>& s,
+                                       int cbase, int nbits) {
+    if (k_minor)
+      bits_k_minor(a, s, pl, cbase, nbits);
     else
-      for (int c = 0; c < cnt; ++c) o.b[c] = (uint8_t)op[c];
-    bool changed = false;
-    uint8_t lg[PPT];
-    if (p >= 0) {
-      load_run(pb + (size_t)p * sk + px * sp, sp, cnt, lg);
-#pragma unroll
-      for (int c = 0; c < PPT; ++c)
-        if (lg[c] && (int8_t)o.b[c] < 0) {
-          o.b[c] = (uint8_t)p;
-          changed = true;
-        }
-    }
-    if (slot >= 0) {
-      const int cls = s_labels[slot];
-      load_run(pb + (size_t)slot * sk + px * sp, sp, cnt, lg);
-#pragma unroll
-      for (int c = 0; c < PPT; ++c)
-        if (lg[c]) {
-          ++n;
-          const int oc = (int8_t)o.b[c];
-          if (oc >= 0 && s_labels[oc] == cls) ++ovl;
-        }
-    }
-    if (changed) {
-      if (vec_o)
-        *reinterpret_cast<int4*>(op) = o.v;
-      else
-        for (int c = 0; c < cnt; ++c) op[c] = (int8_t)o.b[c];
-    }
-  }
-  if (slot < 0) return;
-
-  const int bn = block_sum(n, s_red[0]);
-  const int bo = block_sum(ovl, s_red[1]);
-  if (threadIdx.x == 0) {
-    atomicAdd(&cnt_n[slot], bn);
-    atomicAdd(&cnt_o[slot], bo);
-    __threadfence();
-    const int done = atomicAdd(&ticket[slot], 1);
-    if (done == (int)gridDim.x - 1) {          // the last block decides
-      const int tn = atomicAdd(&cnt_n[slot], 0);
-      const int to = atomicAdd(&cnt_o[slot], 0);
-      const bool reject =
-          tn == 0 || tn == HW ||
-          __fdiv_rn(__int2float_rn(to), __int2float_rn(max(tn, 1))) > frac;
-      keep[bk + slot] = reject ? 0 : 1;
-      *pending = reject ? 0 : slot + 1;
-    }
-  }
+      bits_strided(a, s, pl, cbase, nbits);
+  });
 }
 
 }  // namespace
 
-// The claim loop over slots lo .. hi-1 of every video (each valid thing
-// slot must lie in that range; the others are skipped on the device), then
-// one launch that applies the last claims: hi - lo + 1 launches on
-// `stream`.  Element (b, k, pixel) of the planes lies at
-// planes[b*sb + k*sk + pixel*sp].  Initializes owner [B, HW] to -1, keep
-// [B, K] to 0 and scratch ((3K + 1) B int32) to 0 on the stream.  Returns
-// cudaGetLastError() as an int (0 = launched).
+// Shared memory of one block of the kernel at this geometry (the wrapper's
+// claim_smem must say the same).
+extern "C" long long cs_claim_smem(int group, int K, int run, int chunk,
+                                   int own_smem, int bits_smem) {
+  return (long long)claim::claim_smem_bytes(group, K, run, chunk,
+                                            own_smem != 0, bits_smem != 0, 0);
+}
+
+// The claim loop over the valid thing slots in [lo, hi) of every video, in
+// one cooperative launch of `blocks` blocks on `stream`, at the geometry of
+// the wrapper's claim_geometry (run pixels a block, `chunk` slots a bits
+// pass, the owner tile and the words in shared memory or not, `group`
+// videos a pass).  Element
+// (b, k, pixel) of the planes lies at planes[b*sb + k*sk + pixel*sp];
+// labels [B, K] int64, valid and thing [B, K] bool.  Writes owner [B, HW]
+// and keep [B, K] bool; counts is 3 B K int32 (zeroed here); words is
+// [group, HW rounded up to 16] of
+// 1, 2 or 4 bytes (by chunk) when they do not live in shared memory.
+// Returns a cudaError_t as an int (0 = launched); a grid that cannot be
+// resident at once is refused.
 extern "C" int cs_claim_scan(const void* planes, long long sb, long long sk,
                              long long sp, const void* labels,
-                             const void* flags, float frac, int B, int K,
-                             int HW, int lo, int hi, void* owner, void* keep,
-                             void* scratch, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(owner, 0xff, (size_t)B * HW, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(keep, 0, (size_t)B * K, s);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(scratch, 0,
-                          sizeof(int32_t) * (3 * (size_t)K + 1) * B, s);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(((size_t)HW + (size_t)CT * PPT - 1) /
-                             ((size_t)CT * PPT)),
-                  (unsigned)B);
-  for (int slot = lo; slot <= hi; ++slot) {
-    claim_scan_kernel<<<grid, CT, 0, s>>>(
-        static_cast<const uint8_t*>(planes), sb, sk, sp,
-        static_cast<const int32_t*>(labels),
-        static_cast<const uint8_t*>(flags), frac, B, K, HW,
-        slot < hi ? slot : -1, static_cast<int8_t*>(owner),
-        static_cast<uint8_t*>(keep), static_cast<int32_t*>(scratch));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+                             const void* valid, const void* thing,
+                             float frac, int B, int K,
+                             int HW, int lo, int hi, int blocks, int run,
+                             int chunk, int own_smem, int bits_smem, int group,
+                             void* owner, void* keep, void* counts,
+                             void* words, void* stream) {
+  if (chunk < 1 || chunk > claim::MAX_CHUNK || run % 16 ||
+      (long long)blocks * run < HW || group < 1)
+    return (int)cudaErrorInvalidValue;
+  claim::Args a{};
+  a.labels = static_cast<const int64_t*>(labels);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.thing = static_cast<const uint8_t*>(thing);
+  a.frac = frac;
+  a.B = B;
+  a.K = K;
+  a.HW = HW;
+  a.group = group;
+  a.lo = lo;
+  a.hi = hi;
+  a.run = run;
+  a.chunk = chunk;
+  a.own_smem = own_smem != 0;
+  a.bits_smem = bits_smem != 0;
+  a.owner = static_cast<int8_t*>(owner);
+  a.keep = static_cast<uint8_t*>(keep);
+  a.counts = static_cast<int32_t*>(counts);
+  a.words = words;
+  a.words_stride = ((size_t)HW + 15) / 16 * 16;
+  const Planes pl{static_cast<const uint8_t*>(planes), sb, sk, sp};
+  const void* kernel =
+      chunk <= 8    ? (const void*)claim_scan_kernel<uint8_t>
+      : chunk <= 16 ? (const void*)claim_scan_kernel<uint16_t>
+                    : (const void*)claim_scan_kernel<uint32_t>;
+  return (int)claim::launch(kernel, a, blocks, (cudaStream_t)stream, &pl);
 }
 
 extern "C" const char* cs_error_string(int code) {

@@ -38,17 +38,18 @@
 //          memory leaves 3 flops per (pixel, slot) for the column phase.
 //   claim  is sequential over the valid thing slots: slot i's keep decision
 //          needs whole-map counts taken after every earlier claim.  One
-//          launch per slot applies the previous slot's claim and counts
-//          (block reductions, one atomic per block, the last block decides
-//          via an atomic ticket); the int8 owner map (2 MB) and theta
-//          (8.4 MB) stay in the 50 MB L2 across launches.  No host sync
-//          inside the loop.  Bound: one pass over theta and owner per slot
-//          from device memory, ~3.7 us per slot; in practice the launch
-//          gaps dominate.  A cooperative persistent kernel with
-//          grid.sync() between slots would remove the gaps, but it ties the
-//          grid to the blocks that fit on the card at once and needs the
-//          cooperative launch API; the plain launches were chosen as the
-//          simple first version (their measured cost is in PERF.md).
+//          persistent cooperative launch a call (claim_loop.cuh): a block
+//          a streaming multiprocessor owns a run of full-res pixels, keeps
+//          its owner tile and a bit word a pixel in shared memory, and
+//          builds the words of up to 32 valid things in one pass (below);
+//          then one step a valid thing (claim, count, one atomic a block)
+//          with a grid-wide barrier between steps.  Bound: the valid
+//          things' masks and theta read once, the owner map written once,
+//          and the upsample of each valid thing: ~0.01 ms; the ~n_claim
+//          barriers (1-3 us each) come on top of it.  The earlier kernel
+//          (one launch a slot, each re-reading theta, the owner map and
+//          two slots' neighbourhoods) took 0.52-0.60 ms at K = 64
+//          (PERF.md).
 //   argmax reads the masks and the owner map, writes m_id (8.4 MB) and
 //          per-tile areas; arithmetic as theta without the expf.  Areas use
 //          a shared-memory histogram with warp-aggregated atomics
@@ -64,14 +65,11 @@
 //          copy, 16.8 MB of traffic, is most of its time).  Launched over
 //          all tiles with an early copy-and-return on clean ones: no
 //          compacted tile list, no extra host sync.
-// The K-minor entries run the same kernels with other strides.  theta and
-// argmax stage a block's low-res rows with neighbouring threads on
-// neighbouring slots (the slots of a pixel are contiguous), so their
-// bounds are the slot-major ones.  The claim kernel reads the 3x3 low-res
-// neighbourhood of one slot per pixel quad: in K-minor memory each read
-// uses 4 of a 32-byte sector, so a launch moves ~8x the plane's bytes
-// (~4 MB at 256x512, mostly from L2 while the masks fit in it).  argmax's
-// areas are the whole map's: one row tile of h low-res rows.
+// The K-minor entries run the same kernels with other strides.  theta,
+// argmax and the claim's bits pass stage a block's low-res rows with
+// neighbouring threads on neighbouring slots (the slots of a pixel are
+// contiguous), so their bounds are the slot-major ones.  argmax's areas are
+// the whole map's: one row tile of h low-res rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,13 +77,17 @@
 
 #include <algorithm>
 
+#include "claim_loop.cuh"
+
 namespace {
 
 constexpr int SW = 32;          // low-res columns per block strip
 constexpr int FW = 4 * SW;      // full-res columns per block strip
 constexpr int NT = 4 * FW;      // threads: 4 row phases x FW columns
 constexpr int SC = SW + 2;      // staged low-res columns, with both halos
-constexpr int CT = 256;         // claim kernel threads per block
+constexpr int CSW = 256;        // low-res columns of a claim strip
+constexpr int CSC = CSW + 2;    // staged columns of a claim strip
+constexpr int STAGE_U = 4;      // staged entries a thread loads at once
 constexpr int HT = 256;         // hist kernel threads per block
 constexpr float NEG = -1e30f;
 
@@ -370,119 +372,112 @@ sseg_kernel(const float* __restrict__ x, int64_t* __restrict__ out, int C,
   out[(size_t)(4 * i + pr) * (4 * (size_t)w) + 4 * j0 + xl] = id;
 }
 
-// Upsampled values of the slot whose element (row, col) lies at
-// mk[row*L.sr + col*L.sc] at the 4 full-res pixels (Y, 4j .. 4j+3).
-__device__ __forceinline__ void upsample_quad(const float* __restrict__ mk,
-                                              Layout L, int h, int w, int Y,
-                                              int j, float v[4]) {
-  const int i = Y >> 2;
-  const int pr = Y & 3;
-  const int ip = max(i - 1, 0);
-  const int in = min(i + 1, h - 1);
-  float r[3];
+static_assert(claim::THREADS == 4 * CSW,
+              "a claim strip is one full-res pixel a thread");
+
+// Slot-major or K-minor low-res masks and the full-res theta they are
+// binarized against: the claim kernel's planes.
+struct ThetaPlanes {
+  const float* m;
+  Layout L;
+  const float* theta;
+  int h, w;
+};
+
+// The words of steps cbase .. cbase+nbits-1 (one video): "slot t of the
+// chunk has up_t >= theta here".  A low-res row i of the block's run at a
+// time, in strips of CSW low-res columns (4*CSW full-res pixels, one a
+// thread): the chunk's four row phases of the strip's columns (and both
+// halos) are staged from one read of rows i-1, i, i+1 (STAGE_U entries a
+// thread with their loads issued together; neighbouring threads on
+// neighbouring slots of K-minor masks, on neighbouring columns of
+// slot-major ones); then each thread forms, for each of the strip's
+// full-res rows 4i..4i+3 in the run, its pixel's column phase of every
+// slot of the chunk with the plain version's arithmetic and compares it
+// with theta (read once a chunk).
+template <typename Word>
+__device__ void bits_theta(const claim::Args& a, const claim::Block<Word>& s,
+                           const ThetaPlanes& tp, int cbase, int nbits) {
+  const int nb = min(nbits, s.cnt[0] - cbase);
+  if (nb <= 0 || s.np == 0) return;
+  const uint8_t* list = s.list + cbase;
+  float* R = reinterpret_cast<float*>(s.stage);   // [nb][4][CSC]
+  Word* wd = s.bits(0);
+  const int W4 = 4 * tp.w;
+  const bool slots_inner = tp.L.sk == 1;
+  const float inv_nb = 1.0f / nb;   // (e + 0.5) * inv_nb: exact e / nb here
+  const int p1 = s.p0 + s.np;
+  for (int i = s.p0 / W4 / 4; 4 * i * W4 < p1; ++i) {
+    const int ip = max(i - 1, 0);
+    const int in = min(i + 1, tp.h - 1);
+    // the run's pixels [q0, q1) in full-res rows 4i .. 4i+3: the low-res
+    // columns of that part of one row, or all of them
+    const int q0 = max(s.p0, 4 * i * W4);
+    const int q1 = min(p1, 4 * (i + 1) * W4);
+    const int y0 = q0 / W4, y1 = (q1 - 1) / W4;
+    const int j_lo = y0 == y1 ? (q0 - y0 * W4) >> 2 : 0;
+    const int j_hi = y0 == y1 ? ((q1 - 1 - y0 * W4) >> 2) + 1 : tp.w;
+    for (int j0 = j_lo; j0 < j_hi; j0 += CSW) {
+      __syncthreads();                     // the last strip's reads are done
+      for (int e0 = threadIdx.x; e0 < nb * CSC; e0 += STAGE_U * blockDim.x) {
+        float v[STAGE_U][3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float* col = mk + (size_t)min(max(j - 1 + c, 0), w - 1) * L.sc;
-    r[c] = lerp_phase(pr, col[(size_t)ip * L.sr], col[(size_t)i * L.sr],
-                      col[(size_t)in * L.sr]);
+        for (int u = 0; u < STAGE_U; ++u) {
+          const int e = e0 + u * blockDim.x;
+          if (e >= nb * CSC) continue;
+          const int q = slots_inner ? (int)((e + 0.5f) * inv_nb) : e / CSC;
+          const int t = slots_inner ? e - q * nb : q;
+          const int c = slots_inner ? q : e - q * CSC;
+          const int jj = min(max(j0 - 1 + c, 0), tp.w - 1);
+          const float* mk =
+              tp.m + (size_t)list[t] * tp.L.sk + (size_t)jj * tp.L.sc;
+          v[u][0] = mk[(size_t)ip * tp.L.sr];
+          v[u][1] = mk[(size_t)i * tp.L.sr];
+          v[u][2] = mk[(size_t)in * tp.L.sr];
+        }
+#pragma unroll
+        for (int u = 0; u < STAGE_U; ++u) {
+          const int e = e0 + u * blockDim.x;
+          if (e >= nb * CSC) continue;
+          const int q = slots_inner ? (int)((e + 0.5f) * inv_nb) : e / CSC;
+          const int t = slots_inner ? e - q * nb : q;
+          const int c = slots_inner ? q : e - q * CSC;
+          float* r = R + (size_t)t * 4 * CSC + c;
+#pragma unroll
+          for (int pr = 0; pr < 4; ++pr)
+            r[pr * CSC] = lerp_phase(pr, v[u][0], v[u][1], v[u][2]);
+        }
+      }
+      __syncthreads();
+      const int X = 4 * j0 + threadIdx.x;
+      if (X >= W4) continue;
+      const int jl = threadIdx.x >> 2;
+      const ColPhase cp(threadIdx.x & 3);
+#pragma unroll 1
+      for (int pr = 0; pr < 4; ++pr) {
+        const int pix = (4 * i + pr) * W4 + X;
+        if (pix < s.p0 || pix >= p1) continue;
+        const float th = tp.theta[pix];
+        unsigned v = 0;
+        for (int t = 0; t < nb; ++t) {
+          const float* r = R + ((size_t)t * 4 + pr) * CSC + jl;
+          if (mix(cp.wx, r[cp.xo], cp.wc, r[1]) >= th) v |= 1u << t;
+        }
+        wd[pix - s.p0] = (Word)v;
+      }
+    }
   }
-#pragma unroll
-  for (int pc = 0; pc < 4; ++pc) v[pc] = lerp_phase(pc, r[0], r[1], r[2]);
+  __syncthreads();
 }
 
-__device__ __forceinline__ int block_sum(int x, int* s_red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  int total = 0;
-  if (threadIdx.x == 0)
-    for (int wi = 0; wi < (int)(blockDim.x >> 5); ++wi) total += s_red[wi];
-  return total;   // valid in thread 0 only
-}
-
-// One step of the greedy claim loop.  scratch: [K] pixel counts, [K]
-// same-class overlaps, [K] block tickets, then `pending` = 1 + the slot
-// whose claim is still to be applied (0 = none).  Launch `slot` applies the
-// pending claim and, if `slot` is a valid thing (flags[slot]), counts n and
-// ovl for it; its last block decides keep[slot] and sets `pending`.  The
-// launch with slot = -1 only applies the pending claim.
-__global__ void __launch_bounds__(CT)
-claim_kernel(const float* __restrict__ m, Layout L,
-             const float* __restrict__ theta,
-             const int32_t* __restrict__ labels,
-             const uint8_t* __restrict__ flags, float frac, int K, int h,
-             int w, int slot, int8_t* __restrict__ owner,
-             uint8_t* __restrict__ keep, int32_t* scratch) {
-  __shared__ int s_labels[128];
-  __shared__ int s_red[2][CT / 32];
-  if (slot >= 0 && !flags[slot]) return;     // the whole launch is a no-op
-  int32_t* cnt_n = scratch;
-  int32_t* cnt_o = scratch + K;
-  int32_t* ticket = scratch + 2 * K;
-  int32_t* pending = scratch + 3 * K;
-  const int p = *pending - 1;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) s_labels[k] = labels[k];
-  __syncthreads();
-
-  const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int W4 = 4 * w;
-  const size_t n_quads = (size_t)4 * h * w;
-  int n = 0, ovl = 0;
-  if (q < n_quads) {
-    const int Y = (int)(q / w);
-    const int j = (int)(q % w);
-    const size_t base = (size_t)Y * W4 + 4 * j;
-    const float4 th = *reinterpret_cast<const float4*>(theta + base);
-    const float thv[4] = {th.x, th.y, th.z, th.w};
-    char4 o4 = *reinterpret_cast<const char4*>(owner + base);
-    int o[4] = {o4.x, o4.y, o4.z, o4.w};
-    bool changed = false;
-    float v[4];
-    if (p >= 0) {
-      upsample_quad(m + (size_t)p * L.sk, L, h, w, Y, j, v);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (o[c] < 0 && v[c] >= thv[c]) {
-          o[c] = p;
-          changed = true;
-        }
-    }
-    if (slot >= 0) {
-      const int cls = s_labels[slot];
-      upsample_quad(m + (size_t)slot * L.sk, L, h, w, Y, j, v);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (v[c] >= thv[c]) {
-          ++n;
-          if (o[c] >= 0 && s_labels[o[c]] == cls) ++ovl;
-        }
-    }
-    if (changed)
-      *reinterpret_cast<char4*>(owner + base) =
-          make_char4((signed char)o[0], (signed char)o[1], (signed char)o[2],
-                     (signed char)o[3]);
-  }
-  if (slot < 0) return;
-
-  const int bn = block_sum(n, s_red[0]);
-  const int bo = block_sum(ovl, s_red[1]);
-  if (threadIdx.x == 0) {
-    atomicAdd(&cnt_n[slot], bn);
-    atomicAdd(&cnt_o[slot], bo);
-    __threadfence();
-    const int done = atomicAdd(&ticket[slot], 1);
-    if (done == (int)gridDim.x - 1) {          // the last block decides
-      const int tn = atomicAdd(&cnt_n[slot], 0);
-      const int to = atomicAdd(&cnt_o[slot], 0);
-      const bool degenerate = tn == 0 || (size_t)tn == n_quads * 4;
-      const bool reject =
-          degenerate ||
-          __fdiv_rn(__int2float_rn(to), __int2float_rn(max(tn, 1))) > frac;
-      keep[slot] = reject ? 0 : 1;
-      *pending = reject ? 0 : slot + 1;
-    }
-  }
+template <typename Word>
+__global__ void __launch_bounds__(claim::THREADS, 1)
+claim_kernel(claim::Args a, ThetaPlanes tp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  claim::run_groups<Word>(a, smem, [&](const claim::Block<Word>& s,
+                                       int cbase, int nbits) {
+    bits_theta(a, s, tp, cbase, nbits);
+  });
 }
 
 cudaError_t set_smem(const void* fn, int K) {
@@ -501,36 +496,49 @@ int launch_theta(const void* m, Layout L, const void* valid, float log_thr,
   return (int)cudaGetLastError();
 }
 
-// The claim loop: one launch per slot of the sequence (slots[0 .. n-1] if
-// `slots` is not null, else lo .. lo+n-1), in that order, then one launch
-// that applies the last claim: n + 1 launches.  Every valid thing slot must
-// be in the sequence; other slots in it are skipped on the device.
-// Initializes owner to -1, keep to 0 and scratch (3K + 1 int32) to 0 on the
-// stream.
-int claim_loop(const void* m, Layout L, const void* theta, const void* labels,
-               const void* flags, float frac, int K, int h, int w,
-               const int* slots, int lo, int n, void* owner, void* keep,
-               void* scratch, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(owner, 0xff, (size_t)16 * h * w, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(keep, 0, (size_t)K, s);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(scratch, 0, sizeof(int32_t) * (3 * (size_t)K + 1),
-                          s);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)(((size_t)4 * h * w + CT - 1) / CT);
-  for (int t = 0; t <= n; ++t) {
-    const int slot = t == n ? -1 : (slots != nullptr ? slots[t] : lo + t);
-    claim_kernel<<<blocks, CT, 0, s>>>(
-        static_cast<const float*>(m), L, static_cast<const float*>(theta),
-        static_cast<const int32_t*>(labels),
-        static_cast<const uint8_t*>(flags), frac, K, h, w, slot,
-        static_cast<int8_t*>(owner), static_cast<uint8_t*>(keep),
-        static_cast<int32_t*>(scratch));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+// The claim loop over the valid thing slots in [lo, hi), in one
+// cooperative launch of `blocks` blocks at the wrapper's claim_geometry
+// (run full-res pixels a block, `chunk` slots a bits pass, the owner tile
+// and the words in shared memory or not).  labels [K] int64, valid and
+// thing [K] bool.  Writes owner [4h, 4w] and keep [K] bool; counts is 3K
+// int32 (zeroed here); words holds 16hw rounded up to 16 words of 1, 2 or
+// 4 bytes (by chunk) when they do not live in shared memory.
+int claim_launch(const void* m, Layout L, const void* theta,
+                 const void* labels, const void* valid, const void* thing,
+                 float frac, int K, int h, int w, int lo, int hi, int blocks,
+                 int run, int chunk, int own_smem, int bits_smem, void* owner,
+                 void* keep, void* counts, void* words, void* stream) {
+  const int HW = 16 * h * w;
+  if (chunk < 1 || chunk > claim::MAX_CHUNK || run % 16 ||
+      (long long)blocks * run < HW)
+    return (int)cudaErrorInvalidValue;
+  claim::Args a{};
+  a.labels = static_cast<const int64_t*>(labels);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.thing = static_cast<const uint8_t*>(thing);
+  a.frac = frac;
+  a.B = 1;
+  a.K = K;
+  a.HW = HW;
+  a.group = 1;
+  a.lo = lo;
+  a.hi = hi;
+  a.run = run;
+  a.chunk = chunk;
+  a.own_smem = own_smem != 0;
+  a.bits_smem = bits_smem != 0;
+  a.stage_per_slot = (int)(sizeof(float) * 4 * CSC);
+  a.owner = static_cast<int8_t*>(owner);
+  a.keep = static_cast<uint8_t*>(keep);
+  a.counts = static_cast<int32_t*>(counts);
+  a.words = words;
+  a.words_stride = ((size_t)HW + 15) / 16 * 16;
+  const ThetaPlanes tp{static_cast<const float*>(m), L,
+                       static_cast<const float*>(theta), h, w};
+  const void* kernel = chunk <= 8    ? (const void*)claim_kernel<uint8_t>
+                       : chunk <= 16 ? (const void*)claim_kernel<uint16_t>
+                                     : (const void*)claim_kernel<uint32_t>;
+  return (int)claim::launch(kernel, a, blocks, (cudaStream_t)stream, &tp);
 }
 
 int launch_argmax(const void* m, Layout L, const void* owner,
@@ -570,25 +578,38 @@ extern "C" int pp_theta_hwk(const void* m, const void* valid, float log_thr,
                       stream);
 }
 
-// The claim loop over slots lo .. hi-1 (every valid thing slot must lie in
-// that range): hi - lo + 1 launches.
+// The claim loop over the valid thing slots in [lo, hi): one launch (see
+// claim_launch).
 extern "C" int pp_claim(const void* m, const void* theta, const void* labels,
-                        const void* flags, float frac, int K, int h, int w,
-                        int lo, int hi, void* owner, void* keep,
-                        void* scratch, void* stream) {
-  return claim_loop(m, slot_major(K, h, w), theta, labels, flags, frac, K, h,
-                    w, nullptr, lo, hi - lo, owner, keep, scratch, stream);
+                        const void* valid, const void* thing, float frac,
+                        int K, int h, int w, int lo, int hi, int blocks,
+                        int run, int chunk, int own_smem, int bits_smem,
+                        void* owner, void* keep, void* counts, void* words,
+                        void* stream) {
+  return claim_launch(m, slot_major(K, h, w), theta, labels, valid, thing,
+                      frac, K, h, w, lo, hi, blocks, run, chunk, own_smem,
+                      bits_smem, owner, keep, counts, words, stream);
 }
 
-// The claim loop over the n slots of the host array `slots` (the valid
-// thing slots, ascending): n + 1 launches.
 extern "C" int pp_claim_hwk(const void* m, const void* theta,
-                            const void* labels, const void* flags, float frac,
-                            int K, int h, int w, const int* slots, int n,
-                            void* owner, void* keep, void* scratch,
-                            void* stream) {
-  return claim_loop(m, k_minor(K, h, w), theta, labels, flags, frac, K, h, w,
-                    slots, 0, n, owner, keep, scratch, stream);
+                            const void* labels, const void* valid,
+                            const void* thing, float frac, int K, int h,
+                            int w, int lo, int hi, int blocks, int run,
+                            int chunk, int own_smem, int bits_smem,
+                            void* owner, void* keep, void* counts,
+                            void* words, void* stream) {
+  return claim_launch(m, k_minor(K, h, w), theta, labels, valid, thing, frac,
+                      K, h, w, lo, hi, blocks, run, chunk, own_smem,
+                      bits_smem, owner, keep, counts, words, stream);
+}
+
+// Shared memory of one block of the claim kernel at this geometry (the
+// wrapper's claim_smem must say the same).
+extern "C" long long pp_claim_smem(int K, int run, int chunk, int own_smem,
+                                   int bits_smem) {
+  return (long long)claim::claim_smem_bytes(1, K, run, chunk, own_smem != 0,
+                                            bits_smem != 0,
+                                            (int)(sizeof(float) * 4 * CSC));
 }
 
 // m_id [4h, 4w] int32, areas [T, K] int32 (zeroed by the caller) and, when

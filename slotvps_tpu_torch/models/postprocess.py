@@ -179,7 +179,8 @@ def _postprocess_fused(masks, scores, classes, valid, embeds, is_thing,
     """The fused path on slot-major masks [K, h, w] at a 4x target size.
 
     ``thing_slots = (lo, hi)`` holds every valid thing slot (the slot
-    order puts them there): the claim loop launches once per slot of it."""
+    order puts them there): the claim loop (one launch) visits the valid
+    thing slots of it."""
     if not cfg.apply_mask_removal_only_ins:
         raise NotImplementedError(
             "only apply_mask_removal_only_ins=True is supported")

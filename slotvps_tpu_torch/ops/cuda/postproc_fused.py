@@ -13,16 +13,14 @@ the signature of its plain version in
 
 On CPU tensors a wrapper runs the plain version; on CUDA tensors it
 launches its kernel or raises — there is no fallback.  Each kernel launch
-adds one to the wrapper's ``launches`` count (the claim loop: one launch per
-valid thing slot plus one).  The wrappers allocate every output; kernels
-launch on PyTorch's current stream and do not synchronise, except that the
-claim wrapper reads the valid-thing slots to the host once, before its
-loop.
+adds one to the wrapper's ``launches`` count (the claim loop is one
+persistent launch, which finds the valid thing slots on the device).  The
+wrappers allocate every output; kernels launch on PyTorch's current
+stream and do not synchronise.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -30,7 +28,7 @@ import torch
 from slotvps_tpu_torch.ops import postproc_fused as plain
 from slotvps_tpu_torch.ops.cuda.postproc_v3 import (LIBRARY, _on_card,
                                                     _raise_on, _slot_vec,
-                                                    _stream)
+                                                    _stream, claim_launch)
 
 
 def theta_fused_hopper(m_hwk: torch.Tensor, valid: torch.Tensor,
@@ -57,35 +55,18 @@ def claim_scan_fused_hopper(m_hwk: torch.Tensor, theta: torch.Tensor,
                             labels: torch.Tensor, is_thing: torch.Tensor,
                             valid: torch.Tensor, fraction_threshold: float):
     """(keep_things [K] bool, owner [4h, 4w] int8) (see
-    :func:`plain.claim_scan_fused`).  The kernel path reads the valid thing
-    slots to the host (one sync) and launches once per such slot, in slot
-    order, plus once to apply the last claim."""
+    :func:`plain.claim_scan_fused`).  The kernel path is the claim kernel
+    on K-minor strides, in one launch with no host sync."""
     name = "claim_scan_fused_hopper"
     if not _on_card(name, m_hwk, (labels, is_thing, valid), k_minor=True,
                     theta=(theta, torch.float32)):
         return plain.claim_scan_fused(m_hwk, theta, labels, is_thing, valid,
                                       fraction_threshold)
     h, w, k = m_hwk.shape
-    dev = m_hwk.device
-    things = (_slot_vec(name, "valid", valid, k, dev, torch.bool)
-              & _slot_vec(name, "is_thing", is_thing, k, dev, torch.bool))
-    flags = things.to(torch.uint8)
-    labels32 = _slot_vec(name, "labels", labels, k, dev, torch.int32)
-    slots = torch.nonzero(things).flatten().tolist()
-    slot_arr = (ctypes.c_int * max(len(slots), 1))(*slots)
-    owner = torch.empty((4 * h, 4 * w), dtype=torch.int8, device=dev)
-    keep = torch.empty((k,), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((3 * k + 1,), dtype=torch.int32, device=dev)
-    lib = LIBRARY.load()
-    with torch.cuda.device(dev):
-        rc = lib.pp_claim_hwk(m_hwk.data_ptr(), theta.data_ptr(),
-                              labels32.data_ptr(), flags.data_ptr(),
-                              fraction_threshold, k, h, w, slot_arr,
-                              len(slots), owner.data_ptr(), keep.data_ptr(),
-                              scratch.data_ptr(), _stream(dev))
-    _raise_on(rc, "pp_claim_hwk")
-    claim_scan_fused_hopper.launches += len(slots) + 1
-    return keep.bool(), owner
+    out = claim_launch(name, m_hwk, theta, labels, is_thing, valid,
+                       fraction_threshold, k, h, w, 0, k, k_minor=True)
+    claim_scan_fused_hopper.launches += 1
+    return out
 
 
 def argmax_areas_hopper(m_hwk: torch.Tensor, owner: torch.Tensor,

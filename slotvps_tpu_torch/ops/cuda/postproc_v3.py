@@ -12,10 +12,12 @@ The same library's K-minor entries have their wrappers in
 
 On CPU tensors a wrapper runs the plain version; on CUDA tensors it
 launches its kernel or raises — there is no fallback.  Each kernel launch
-adds one to the wrapper's ``launches`` count (the claim loop is one launch
-per slot of its range plus one; ``argmax_hopper(top2=True)`` counts in
-``argmax_hopper.top2_launches``).  The wrappers allocate every output;
-kernels launch on PyTorch's current stream and do not synchronise.
+adds one to the wrapper's ``launches`` count (the claim loop is one
+persistent cooperative launch, whose geometry comes from
+:func:`slotvps_tpu_torch.ops.cuda.claim_scan.claim_geometry`;
+``argmax_hopper(top2=True)`` counts in ``argmax_hopper.top2_launches``).
+The wrappers allocate every output; kernels launch on PyTorch's current
+stream and do not synchronise.
 """
 
 from __future__ import annotations
@@ -28,17 +30,25 @@ import torch
 
 from slotvps_tpu_torch.ops import postproc_v3 as plain
 from slotvps_tpu_torch.ops.cuda.build import KernelLibrary
+from slotvps_tpu_torch.ops.cuda.claim_scan import (card_sms, claim_buffers,
+                                                   claim_geometry)
 
 MAX_SLOTS = 127   # int8 owner maps
+# staging bytes a chunk slot of the claim kernel: the four f32 row phases
+# of a strip of 256 low-res columns and both halos (csrc/postproc_v3.cu
+# CSC)
+CLAIM_STAGE = 4 * 4 * (256 + 2)
 
 
 def _declare(lib: ctypes.CDLL):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pp_theta.argtypes = [p, p, f, p, i, i, i, p]
     lib.pp_theta_hwk.argtypes = [p, p, f, p, i, i, i, p]
-    lib.pp_claim.argtypes = [p, p, p, p, f, i, i, i, i, i, p, p, p, p]
-    lib.pp_claim_hwk.argtypes = [p, p, p, p, f, i, i, i,
-                                 ctypes.POINTER(i), i, p, p, p, p]
+    claim = [p, p, p, p, p, f] + [i] * 10 + [p] * 5
+    lib.pp_claim.argtypes = claim
+    lib.pp_claim_hwk.argtypes = claim
+    lib.pp_claim_smem.argtypes = [i] * 5
+    lib.pp_claim_smem.restype = ctypes.c_longlong
     lib.pp_argmax.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.pp_argmax_hwk.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.pp_hist.argtypes = [p, ctypes.c_longlong, i, p, p]
@@ -129,6 +139,41 @@ def theta_hopper(m_klow: torch.Tensor, valid: torch.Tensor,
     return out
 
 
+def claim_launch(name: str, m: torch.Tensor, theta_map: torch.Tensor,
+                 labels: torch.Tensor, is_thing: torch.Tensor,
+                 valid: torch.Tensor, fraction_threshold: float,
+                 k: int, h: int, w: int, lo: int, hi: int,
+                 k_minor: bool = False):
+    """The claim kernel's one launch over the valid thing slots in [lo, hi)
+    of masks ``m`` (slot-major, or [h, w, K] with ``k_minor``), checked by
+    :func:`_on_card`: (keep [K] bool, owner [4h, 4w] int8)."""
+    if not 0 <= lo <= hi <= k:
+        raise ValueError(f"{name}: slots {(lo, hi)} outside [0, {k}]")
+    if 16 * h * w >= 2 ** 31:
+        raise ValueError(f"{name}: {4 * h}x{4 * w} pixels exceed the int32 "
+                         "counts")
+    dev = m.device
+    valid = _slot_vec(name, "valid", valid, k, dev, torch.bool)
+    thing = _slot_vec(name, "is_thing", is_thing, k, dev, torch.bool)
+    labels = _slot_vec(name, "labels", labels, k, dev, torch.int64)
+    geo = claim_geometry(1, 4 * h, 4 * w, k, card_sms(dev),
+                         stage=CLAIM_STAGE)
+    owner = torch.empty((4 * h, 4 * w), dtype=torch.int8, device=dev)
+    keep = torch.empty((k,), dtype=torch.bool, device=dev)
+    counts, words = claim_buffers(geo, 1, k, 16 * h * w, dev)
+    lib = LIBRARY.load()
+    entry = lib.pp_claim_hwk if k_minor else lib.pp_claim
+    with torch.cuda.device(dev):
+        rc = entry(m.data_ptr(), theta_map.data_ptr(), labels.data_ptr(),
+                   valid.data_ptr(), thing.data_ptr(), fraction_threshold, k,
+                   h, w, lo, hi, geo.blocks, geo.run, geo.chunk,
+                   int(geo.own_smem), int(geo.bits_smem), owner.data_ptr(),
+                   keep.data_ptr(), counts.data_ptr(),
+                   None if words is None else words.data_ptr(), _stream(dev))
+    _raise_on(rc, "pp_claim_hwk" if k_minor else "pp_claim")
+    return keep, owner
+
+
 def claim_hopper(m_klow: torch.Tensor, theta_map: torch.Tensor,
                  labels: torch.Tensor, is_thing: torch.Tensor,
                  valid: torch.Tensor, fraction_threshold: float,
@@ -137,36 +182,19 @@ def claim_hopper(m_klow: torch.Tensor, theta_map: torch.Tensor,
     :func:`plain.claim`).
 
     ``slots = (lo, hi)`` is a range of slots that holds every valid thing
-    slot (default: all K); the kernel path launches once per slot of it
-    plus once to apply the last claim, and skips the slots that are not
-    valid things on the device.  The plain version ignores it."""
+    slot (default: all K).  The kernel runs the whole loop in one launch
+    and visits only the valid thing slots of the range.  The plain version
+    ignores it."""
     if not _on_card("claim_hopper", m_klow, (labels, is_thing, valid),
                     theta=(theta_map, torch.float32)):
         return plain.claim(m_klow, theta_map, labels, is_thing, valid,
                            fraction_threshold)
     k, h, w = m_klow.shape
-    dev = m_klow.device
     lo, hi = (0, k) if slots is None else (int(slots[0]), int(slots[1]))
-    if not 0 <= lo <= hi <= k:
-        raise ValueError(f"claim_hopper: slots {slots} outside [0, {k}]")
-    name = "claim_hopper"
-    flags = (_slot_vec(name, "valid", valid, k, dev, torch.bool)
-             & _slot_vec(name, "is_thing", is_thing, k, dev, torch.bool)) \
-        .to(torch.uint8)
-    labels32 = _slot_vec(name, "labels", labels, k, dev, torch.int32)
-    owner = torch.empty((4 * h, 4 * w), dtype=torch.int8, device=dev)
-    keep = torch.empty((k,), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((3 * k + 1,), dtype=torch.int32, device=dev)
-    lib = LIBRARY.load()
-    with torch.cuda.device(dev):
-        rc = lib.pp_claim(m_klow.data_ptr(), theta_map.data_ptr(),
-                          labels32.data_ptr(), flags.data_ptr(),
-                          fraction_threshold, k, h, w, lo, hi,
-                          owner.data_ptr(), keep.data_ptr(),
-                          scratch.data_ptr(), _stream(dev))
-    _raise_on(rc, "pp_claim")
-    claim_hopper.launches += hi - lo + 1
-    return keep.bool(), owner
+    out = claim_launch("claim_hopper", m_klow, theta_map, labels, is_thing,
+                       valid, fraction_threshold, k, h, w, lo, hi)
+    claim_hopper.launches += 1
+    return out
 
 
 def argmax_hopper(m_klow: torch.Tensor, owner: torch.Tensor,
