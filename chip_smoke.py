@@ -11,8 +11,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
   2. build    — compile the four kernel libraries from
      slotvps_tpu_torch/csrc/ (one nvcc each, started together); one line
      per wgmma kernel (the DCN forward and the DCN backward's data and dW
-     passes in bf16 and in f32, slot attention's pass 1) with its
-     registers, dynamic shared memory and spills from ptxas; each DCN
+     passes in bf16 and in f32, slot attention's pass 1) and per instance
+     of the f32 slot-attention kernel (slot_attn_f32_kernel, 64 and 128
+     slots) with its registers, dynamic shared memory and spills from
+     ptxas; each DCN
      kernel's shared memory as the wrapper states it against the
      library's; the same lines for the two persistent claim kernels
      (claim_scan_kernel, claim_kernel; one instance per bit-word width)
@@ -24,8 +26,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      frame, each at its level's halo; theta, claim, argmax and repair at
      K = 64 and K = 100 slots of 256x512 low-res masks, with small segments
      so that repair has dirty tiles; sseg on [256, 512, 19] quarter-res
-     logits with ties; slot attention at the decoder's four pixel counts;
-     argmax with its runner-up map (top2) and hist at K = 64.
+     logits with ties; slot attention at the decoder's four pixel counts,
+     in bf16 and in f32 (the f32 kernel also at L = 1, 64, 65, 128 and
+     P = 1, 64, 777, 4133); argmax with its runner-up map (top2) and hist
+     at K = 64.
      The claim loops' edge cases (claim_cases): more than 32 valid things,
      K = 127, all-0 and all-1 planes, B = 2 with different numbers of
      valid things, and batches past the shared-memory geometry (the owner
@@ -34,8 +38,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      K-minor masks, each bit-identical to its plain version, equal in two
      runs, one launch a call.
      Batch invariance: the bf16 and the f32 DCN at a P3 shape with B = 2
-     against each image alone, slot attention with B = 2 at P = 32768
-     against each batch element alone, bit for bit, and two runs equal.
+     against each image alone, slot attention in bf16 and in f32 with
+     B = 2 at P = 32768 against each batch element alone, bit for bit, and
+     two runs equal.
      At the 12 shapes of the 800x1600 training crop (B=2: the reference
      and the current frame), each level at its halo, with offsets that
      clamp some taps: the DCN forward kernel on the f32 model's bf16 route
@@ -56,6 +61,20 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      path of the earlier slices (f32 DCN kernel, full-res semantic logits,
      fused postprocess) on the first 3 frames with the same weights, with
      its own launch counts.
+  4b. checkpoint — the path a user takes to evaluate published weights, on
+     the f32 Pallas-Retriever path (the f32 path with
+     retriever_impl="pallas": the f32 slot-attention kernel): the same
+     weights written as a reference-format .pth (reference_state_dict),
+     loaded by utils/checkpoint.load_torch_checkpoint (state_dict equal bit
+     for bit), check_dcn_halo on the clip's first 3 frames (per-level
+     maxima, recommendation taken), those frames through InferencePipeline
+     with the launch counts (14 f32 slot-attention launches a frame),
+     steady ms a frame and peak memory, and the integer outputs against the
+     plain-Retriever route with the same weights.
+  4c. cli     — the eval CLI's main with --checkpoint <that .pth>
+     --save_diff_fig on a synthetic 2-video x 2-frame 1024x2048 dataset on
+     disk, on the same path: a VPQ summary, the halo line, pred.json and
+     the diff figures.
   5. postproc — on two clip frames, the bf16 path's decoder outputs go
      through postprocess_frame with impl="fused" (the kernels, sseg on the
      quarter-res logits) and impl="jax" (the reference path): equal sseg,
@@ -112,9 +131,12 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import pathlib
 import re
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -143,6 +165,14 @@ DCN_F32_OUT_RTOL = 1e-3
 # slot attention (f32 out): f32 sums over 256 channels and over the pixels
 # in another order
 SA_RTOL = 1e-4
+# the f32 kernel: exact f32 FMA, the sums in another order than the plain
+# version's; both lie ~2e-6 of max|ref| from float64 at L = 100, P <=
+# 131072 (measured on the H100)
+SA_F32_RTOL = 1e-5
+# (L, P) edge cases of the f32 kernel: one slot, a full 128 slots, the
+# 64-slot instance's largest L and the 128-slot one's smallest, one pixel,
+# pixel counts that end inside a 64-pixel tile
+SA_EDGE_CASES = ((1, 4133), (128, 4133), (64, 777), (65, 64), (100, 1))
 # (pixels, calls per frame) of the slot-attention kernel: stage 0 on the
 # 32x64 level, two stages on each finer level, both frames of the pair
 SA_PIXELS = ((2048, 2), (8192, 4), (32768, 4), (131072, 4))
@@ -219,6 +249,11 @@ KERNELS = {
     "slot_attention_hopper": (SRC + "slot_attention.cu",
                               "slotvps_tpu/ops/pallas/slot_attention.py:35",
                               "bf16"),
+    # the f32 instance of the same TPU kernel, on the f32 Pallas-Retriever
+    # path that the checkpoint phase drives
+    "slot_attention_hopper_f32": (SRC + "slot_attention.cu",
+                                  "slotvps_tpu/ops/pallas/slot_attention.py"
+                                  ":35", "checkpoint"),
     "claim_scan_hopper": (SRC + "claim_scan.cu",
                           "slotvps_tpu/ops/pallas/claim_scan.py:29",
                           "batched_pallas"),
@@ -274,6 +309,8 @@ def launch_counts():
               "dcn_backward_hopper_bf16": bwd["bfloat16"]}
     counts.update({name: fn.launches for name, fn in wrappers().items()})
     counts["argmax_hopper_top2"] = wrappers()["argmax_hopper"].top2_launches
+    counts["slot_attention_hopper_f32"] = \
+        wrappers()["slot_attention_hopper"].f32_launches
     return counts
 
 
@@ -288,6 +325,7 @@ def reset_counts():
     for fn in wrappers().values():
         fn.launches = 0
     wrappers()["argmax_hopper"].top2_launches = 0
+    wrappers()["slot_attention_hopper"].f32_launches = 0
 
 
 def bound_parts(n_bytes, n_ops, peak_ops=F32_FLOPS, n_ops_bf16=0,
@@ -349,6 +387,8 @@ def phase_build():
         log("build", f"nvcc built {path.name} in {secs:.2f} s")
     for row in wgmma_kernel_resources(deform_conv.LIBRARY,
                                       slot_attention.LIBRARY):
+        log("build", json.dumps(row))
+    for row in sa_f32_kernel_resources():
         log("build", json.dumps(row))
     check_dcn_smem()
     for row in claim_kernel_resources(claim_scan.LIBRARY,
@@ -418,6 +458,34 @@ def wgmma_kernel_resources(*libs):
             f"ptxas reported {len(rows)} wgmma kernel instances, not 23 (6 "
             "bf16 and 3 f32 DCN forward, 3 + 3 bf16 and 3 + 3 f32 DCN "
             "backward, 2 slot attention)")
+    return rows
+
+
+def sa_f32_kernel_resources():
+    """Registers, spills and dynamic shared memory of the two instances of
+    the f32 slot-attention kernel (64 and 128 padded slots), from ptxas;
+    the wrapper's statement of their shared memory (f32_smem, tested on the
+    CPU) against the library's."""
+    from slotvps_tpu_torch.ops.cuda import slot_attention as sa
+
+    lib = sa.LIBRARY.load()
+    rows = []
+    for name, regs, stack, st, ld in ptxas_entries(sa.LIBRARY):
+        m = re.search(r"slot_attn_f32_kernelILi(\d+)E", name)
+        if m:
+            nq = int(m.group(1))
+            rows.append(dict(
+                kernel=f"slot_attn_f32_kernel<{nq}>", registers=regs,
+                spill_stores=st, spill_loads=ld, stack_bytes=stack,
+                dynamic_smem_bytes=lib.sa_f32_smem_bytes(nq)))
+            if rows[-1]["dynamic_smem_bytes"] != sa.f32_smem(nq):
+                raise AssertionError(f"f32 slot attention's shared memory at "
+                                     f"{nq} slots: library "
+                                     f"{rows[-1]['dynamic_smem_bytes']}, "
+                                     f"wrapper {sa.f32_smem(nq)}")
+    if len(rows) != 2:
+        raise AssertionError(f"ptxas reported {len(rows)} f32 slot-attention "
+                             "kernel instances, not 2 (64 and 128 slots)")
     return rows
 
 
@@ -921,21 +989,30 @@ def phase_sseg_kernel(dev, shape=SSEG_SHAPE, timed=True):
 
 
 def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
-                         timed=True):
-    """Slot-attention kernel vs plain at the decoder's pixel counts, bf16
-    q [1, L, 256], k and v [1, P, 256].  Returns the per-frame row (each
-    shape weighted by its calls per frame)."""
+                         timed=True, dtype=torch.bfloat16,
+                         edge_cases=SA_EDGE_CASES):
+    """Slot-attention kernel vs plain at the decoder's pixel counts, q [1, L,
+    256], k and v [1, P, 256] in ``dtype`` (bf16: the tensor-core kernel,
+    f32: the FMA kernel), then (untimed) ``edge_cases`` (L, P) in f32.
+    Returns the per-frame row (each shape weighted by its calls per
+    frame)."""
     from slotvps_tpu_torch.ops.cuda.slot_attention import (
         slot_attention_hopper)
     from slotvps_tpu_torch.ops.slot_attention import slot_attention
 
-    total = dict(kernel="slot_attention_hopper", max_abs_err=0.0,
-                 bytes=0, ops=0, ops_bf16=0, ms=0.0, plain_ms=0.0)
-    for i, (n_pix, calls) in enumerate(pixels):
+    f32 = dtype == torch.float32
+    rtol = SA_F32_RTOL if f32 else SA_RTOL
+    name = "slot_attention_hopper" + ("_f32" if f32 else "")
+    total = dict(kernel=name, max_abs_err=0.0, bytes=0, ops=0, ops_bf16=0,
+                 ms=0.0, plain_ms=0.0)
+    cases = [(n_slots, n_pix, calls) for n_pix, calls in pixels]
+    if f32:
+        cases += [(slots, n_pix, 0) for slots, n_pix in edge_cases]
+    for i, (slots, n_pix, calls) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(20 + i)
-        q, k, v = (torch.randn(shape, generator=g, device=dev).to(
-            torch.bfloat16) for shape in ((1, n_slots, 256),
-                                          (1, n_pix, 256), (1, n_pix, 256)))
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((1, slots, 256), (1, n_pix, 256),
+                                 (1, n_pix, 256)))
         out = slot_attention_hopper(q, k, v)
         ref = slot_attention(q, k, v)
         again = slot_attention_hopper(q, k, v)
@@ -943,28 +1020,33 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
             torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
+        esz = 4 if f32 else 2
         # q, k, v read once, out written once; 2 flops per (slot, pixel,
-        # channel) in each product, on the tensor cores (bf16 in, f32
+        # channel) in each product: bf16, on the tensor cores (bf16 in, f32
         # sums): q.k, and p.v as three exact bf16 parts of the f32 p (the
-        # kernel's work, csrc/slot_attention.cu); the softmax ~5 f32 per
-        # (slot, pixel)
-        n_bytes = 2 * (n_slots + 2 * n_pix) * 256 + 4 * n_slots * 256
-        n_ops_bf16 = 4 * 2 * n_slots * 256 * n_pix
-        n_ops = 5 * n_slots * n_pix
-        row = dict(P=n_pix, calls_per_frame=calls, max_abs_err=err,
+        # kernel's work, csrc/slot_attention.cu); f32, q.k and p.v as f32
+        # FMA; the softmax ~5 f32 per (slot, pixel)
+        n_bytes = esz * (slots + 2 * n_pix) * 256 + 4 * slots * 256
+        n_ops_bf16 = 0 if f32 else 4 * 2 * slots * 256 * n_pix
+        n_ops = (4 * slots * 256 * n_pix if f32 else 0) + 5 * slots * n_pix
+        row = dict(L=slots, P=n_pix, dtype=str(dtype).split(".")[-1],
+                   calls_per_frame=calls, max_abs_err=err,
                    max_abs_ref=scale, bytes=n_bytes, ops=n_ops,
                    ops_bf16=n_ops_bf16)
-        if timed:
+        if timed and calls:
             row["ms"] = _cuda_ms(lambda: slot_attention_hopper(q, k, v))
             row["plain_ms"] = _cuda_ms(lambda: slot_attention(q, k, v))
             total["ms"] += calls * row["ms"]
             total["plain_ms"] += calls * row["plain_ms"]
         log("kernels", json.dumps(row))
-        if not (err <= SA_RTOL * scale and torch.equal(out, again)):
+        if not (err <= rtol * scale and torch.equal(out, again)):
             raise AssertionError(
-                f"slot attention disagrees at P={n_pix}: max|d| {err:.3e} "
-                f"vs {SA_RTOL} * max|ref| {scale:.3e}, or two runs differ")
+                f"{name} disagrees at L={slots}, P={n_pix}: max|d| "
+                f"{err:.3e} vs {rtol} * max|ref| {scale:.3e}, or two runs "
+                "differ")
         total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["max_rel_err"] = max(total.get("max_rel_err", 0.0),
+                                   err / scale)
         total["bytes"] += calls * n_bytes
         total["ops"] += calls * n_ops
         total["ops_bf16"] += calls * n_ops_bf16
@@ -972,6 +1054,7 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
         total["bytes"], total["ops"], n_ops_bf16=total["ops_bf16"])
     total["bound_parts_ms"] = bound_parts(
         total["bytes"], total["ops"], n_ops_bf16=total["ops_bf16"])
+    log("kernels", json.dumps(total))
     return total
 
 
@@ -979,8 +1062,8 @@ def phase_batch_invariance(dev, dcn_shape=(128, 256, 256, 256, 3),
                            sa_pixels=32768, n_slots=SA_SLOTS):
     """Each image of a batch of 2 against the same image alone, bit for
     bit: the bf16 DCN (bf16 in and out) and the f32 DCN at a P3 shape and
-    slot attention at P = 32768; and each batched call equal in two runs.
-    These launches are not the main path's."""
+    slot attention in bf16 and in f32 at P = 32768; and each batched call
+    equal in two runs.  These launches are not the main path's."""
     from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
     from slotvps_tpu_torch.ops.cuda.slot_attention import (
         slot_attention_hopper)
@@ -997,16 +1080,18 @@ def phase_batch_invariance(dev, dcn_shape=(128, 256, 256, 256, 3),
                                           off[i:i + 1].contiguous(), wt,
                                           halo) for i in range(2)]
         dcn[dtype] = (both, again, alone)
-    g = torch.Generator(device=dev).manual_seed(91)
-    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-               for shape in ((2, n_slots, 256), (2, sa_pixels, 256),
-                             (2, sa_pixels, 256)))
-    sa_both = slot_attention_hopper(q, k, v)
-    sa_again = slot_attention_hopper(q, k, v)
-    sa_alone = [slot_attention_hopper(q[i:i + 1].contiguous(),
-                                      k[i:i + 1].contiguous(),
-                                      v[i:i + 1].contiguous())
-                for i in range(2)]
+    sa = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(91)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((2, n_slots, 256), (2, sa_pixels, 256),
+                                 (2, sa_pixels, 256)))
+        sa[dtype] = (slot_attention_hopper(q, k, v),
+                     slot_attention_hopper(q, k, v),
+                     [slot_attention_hopper(q[i:i + 1].contiguous(),
+                                            k[i:i + 1].contiguous(),
+                                            v[i:i + 1].contiguous())
+                      for i in range(2)])
     if dev.type == "cuda":
         torch.cuda.synchronize()
     row = dict(dcn_shape=f"2x{h}x{w} {cin}->{cout} halo {halo}")
@@ -1015,15 +1100,15 @@ def phase_batch_invariance(dev, dcn_shape=(128, 256, 256, 256, 3),
         row[f"{name}_equal_alone"] = [torch.equal(both[i:i + 1], alone[i])
                                       for i in range(2)]
         row[f"{name}_equal_again"] = torch.equal(both, again)
-    row.update(
-        sa_shape=f"2x{n_slots}x{sa_pixels}",
-        sa_equal_alone=[torch.equal(sa_both[i:i + 1], sa_alone[i])
-                        for i in range(2)],
-        sa_equal_again=torch.equal(sa_both, sa_again))
+    row["sa_shape"] = f"2x{n_slots}x{sa_pixels}"
+    for dtype, (both, again, alone) in sa.items():
+        name = "sa" if dtype == torch.bfloat16 else "sa_f32"
+        row[f"{name}_equal_alone"] = [torch.equal(both[i:i + 1], alone[i])
+                                      for i in range(2)]
+        row[f"{name}_equal_again"] = torch.equal(both, again)
     log("kernels", json.dumps({"batch_invariance": row}))
-    if not (all(row["dcn_equal_alone"]) and row["dcn_equal_again"]
-            and all(row["dcn_f32_equal_alone"]) and row["dcn_f32_equal_again"]
-            and all(row["sa_equal_alone"]) and row["sa_equal_again"]):
+    if not all(all(v) if isinstance(v, list) else v
+               for key, v in row.items() if "equal" in key):
         raise AssertionError(f"a kernel's batch of 2 is not its images "
                              f"alone bit for bit, or two runs differ: {row}")
     return row
@@ -1114,8 +1199,9 @@ def expected_launches(cfg, results, steps=None):
     want = dict.fromkeys(KERNELS, 0)
     want[dcn] = 3 * m.semantic_head.num_levels * n
     if m.slot_head.retriever_impl == "pallas":
-        want["slot_attention_hopper"] = \
-            2 * sum(m.slot_head.per_dh_num_heads) * calls
+        sa = ("slot_attention_hopper_f32" if m.compute_dtype == "float32"
+              else "slot_attention_hopper")
+        want[sa] = 2 * sum(m.slot_head.per_dh_num_heads) * calls
     if m.postprocess.impl == "pallas":
         want["claim_scan_hopper"] = n
     elif m.postprocess.impl == "fused":
@@ -1444,6 +1530,293 @@ def f32_config():
                                           dcn_impl="pallas_f32",
                                           fused_sseg=False),
         slot_head=dataclasses.replace(m.slot_head, retriever_impl="jax")))
+
+
+def checkpoint_config():
+    """The f32 Pallas-Retriever path: the f32 path of the earlier slices
+    with the Retriever on the f32 slot-attention kernel."""
+    cfg = f32_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, slot_head=dataclasses.replace(cfg.model.slot_head,
+                                                 retriever_impl="pallas")))
+
+
+def reference_state_dict(model, mcfg):
+    """The port model's state dict in the reference checkpoint's key names
+    (VPS_Temporal_Slots: image_model.{backbone, neck, panopticFPN,
+    dynamic_mask_head, ...}, temporal_track_head), the inverse of the key
+    map of utils/checkpoint.py, for writing a reference-format .pth."""
+    im = "image_model"
+    stages = [f"head_series_{lvl}.{j}"
+              for lvl, n in enumerate(mcfg.slot_head.per_dh_num_heads)
+              for j in range(n)]
+    out = {}
+    for key, val in model.state_dict().items():
+        top, *rest = key.split(".")
+        if top == "backbone":
+            name = f"{im}.backbone." + ".".join(rest).replace(
+                "downsample.conv.", "downsample.0.").replace(
+                "downsample.bn.", "downsample.1.")
+        elif top == "fpn":
+            kind = {"lateral": "lateral_convs", "fpn": "fpn_convs"}[rest[0]]
+            name = f"{im}.neck.{kind}.{rest[1]}.conv.{rest[2]}"
+        elif top == "semantic_head" and rest[0] == "conv_pred":
+            name = f"{im}.panopticFPN.conv_pred.conv.{rest[1]}"
+        elif top == "semantic_head":      # tower.{j}.{offset,conv,gn}.leaf
+            j, mod, leaf = int(rest[1]), rest[2], rest[3]
+            idx = 3 * j + (mod == "gn")
+            sub = {"offset": "conv_offset.", "conv": "conv.", "gn": ""}[mod]
+            name = f"{im}.panopticFPN.deform_convs.0.{idx}.{sub}{leaf}"
+        elif top == "slot_head" and rest[0] == "conv_trans":
+            name = f"{im}.dynamic_mask_head.conv_trans.conv.{rest[1]}"
+        elif top == "slot_head":          # stages.{flat}.<module path>
+            path = rest[2:]
+            if path[0] in ("cls_module", "reg_module"):
+                path = [path[0], str(3 * int(path[1]) + (path[2] == "ln")),
+                        *path[3:]]
+            elif path[0] == "temporal":
+                path = ["temporal_query_head", *path[1:]]
+            name = (f"{im}.dynamic_mask_head.{stages[int(rest[1])]}."
+                    + ".".join(path))
+        elif top == "track_head":
+            name = f"temporal_track_head.fcs_query.{rest[1]}.{rest[2]}"
+        elif top == "init_mask_query":
+            name = f"{im}.init_mask_query.weight"
+        elif top == "conv_trans":
+            name = f"{im}.conv_trans.conv.{rest[0]}"
+        else:                             # fg_bn, feat_bn
+            name = f"{im}.{key}"
+        out[name] = val.detach().cpu().clone()
+    return out
+
+
+# the f32 Pallas-Retriever path against the plain-Retriever path, same
+# weights: a slot may change sides of the 0.85 keep rule only if its score
+# lies this close to it (the two routes' f32 attention outputs differ by
+# ~2e-6 of max)
+KEEP_MARGIN = 1e-4
+
+
+def _valid_slots(model, cfg, frames, dev, t):
+    """(valid slot ids, scores) of frame ``t``'s decoder outputs on
+    ``cfg``'s path under the keep rule (class != no-object, score >
+    threshold)."""
+    pcfg = cfg.model.postprocess
+    outs = _decoder_outputs(model, cfg, frames[:t + 1], dev)[t]
+    probs = torch.softmax(outs.pred_logits[0].float(), dim=-1)
+    scores, classes = probs.amax(-1), probs.argmax(-1)
+    valid = (classes != pcfg.num_classes - 1) & (scores > pcfg.threshold)
+    return set(torch.nonzero(valid).flatten().tolist()), scores.cpu()
+
+
+def _routes_agree(model, cfg_k, cfg_p, frames, dev, res_k, res_p):
+    """The kernel route's integer outputs against the plain route's: equal,
+    or, where they differ, every slot that the keep rule keeps on one route
+    only has its score within KEEP_MARGIN of the threshold on both, and
+    with the same slots kept the semantic maps are equal and the panoptic
+    maps agree on >= PAN_AGREE of the pixels (a pixel whose mask logits tie
+    within the routes' difference).  Prints what differs."""
+    thr = cfg_k.model.postprocess.threshold
+    notes = []
+    for t, (a, b) in enumerate(zip(res_p, res_k)):
+        diff = [name for name in ("sseg", "panoptic", "cls_inds", "obj_ids")
+                if not np.array_equal(getattr(a, name), getattr(b, name))]
+        if not diff:
+            continue
+        vk, sk = _valid_slots(model, cfg_k, frames, dev, t)
+        vp, sp = _valid_slots(model, cfg_p, frames, dev, t)
+        slots = sorted(vk ^ vp)
+        near = {s: (float(sk[s]), float(sp[s])) for s in slots}
+        pan = float((a.panoptic == b.panoptic).mean())
+        notes.append(dict(frame=t, differ_in=diff, slots_kept_on_one_route=
+                          near, panoptic_agreement=pan))
+        log("checkpoint", f"frame {t}: the routes differ in {diff}; slots "
+                          f"kept on one route only (kernel score, plain "
+                          f"score): {near}; panoptic agreement {pan:.6f}")
+        if slots:
+            if any(abs(x - thr) > KEEP_MARGIN for sc in near.values()
+                   for x in sc):
+                raise AssertionError(
+                    f"frame {t}: the f32 kernel route keeps other slots "
+                    f"than the plain route, not all within {KEEP_MARGIN} "
+                    f"of the {thr} rule: {near}")
+        elif not (np.array_equal(a.sseg, b.sseg) and pan >= PAN_AGREE
+                  and a.cls_inds.tolist() == b.cls_inds.tolist()
+                  and a.obj_ids.tolist() == b.obj_ids.tolist()):
+            raise AssertionError(f"frame {t}: same slots kept, but the "
+                                 f"routes' outputs differ in {diff} "
+                                 f"(panoptic agreement {pan})")
+    return notes
+
+
+def phase_checkpoint(dev, model, frames, root, cfg=None):
+    """The path a user takes to evaluate published weights, on the f32
+    Pallas-Retriever path: ``model``'s weights written as a reference-format
+    .pth; loaded with load_torch_checkpoint into a new model (state_dict
+    equal bit for bit); check_dcn_halo on the clip's frames (per-level
+    maxima and the recommendation, taken as the CLI takes it); the frames
+    through InferencePipeline (launches counted, the f32 slot-attention
+    kernel 14 a frame; steady ms a frame, peak memory); the integer
+    outputs against the plain-Retriever route with the same weights
+    (:func:`_routes_agree`).  ``cfg``: :func:`checkpoint_config` unless
+    given.  Returns (stats, .pth path, the config the frames ran on)."""
+    from slotvps_tpu_torch.inference import _device_normalize
+    from slotvps_tpu_torch.models.detector import init_model
+    from slotvps_tpu_torch.utils.checkpoint import load_torch_checkpoint
+    from slotvps_tpu_torch.utils.diagnostics import (check_dcn_halo,
+                                                     measure_max_dcn_offset)
+
+    cfg = cfg or checkpoint_config()
+    pth = root / "reference.pth"
+    torch.save({"state_dict": reference_state_dict(model, cfg.model),
+                "meta": {"CLASSES": None, "config": "r50_fpn_slotvps"}}, pth)
+    t0 = time.perf_counter()
+    loaded = init_model(torch.Generator().manual_seed(5), cfg.model,
+                        device=dev)
+    loaded.load_state_dict(load_torch_checkpoint(str(pth), cfg.model),
+                           strict=True)
+    load_s = time.perf_counter() - t0
+    want, got = model.state_dict(), loaded.state_dict()
+    differ = sorted(k for k in want if not torch.equal(want[k], got[k]))
+    if set(want) != set(got) or differ:
+        raise AssertionError(f"the loaded checkpoint's state_dict differs "
+                             f"from the model's in {differ[:8]}")
+    log("checkpoint", f"wrote {pth.stat().st_size / 2 ** 20:.1f} MiB in the "
+                      f"reference's key names ({len(want)} entries); "
+                      f"load_torch_checkpoint + load_state_dict "
+                      f"{load_s:.2f} s: state_dict equal bit for bit")
+    images = [_device_normalize(torch.from_numpy(f).to(dev), cfg.data)
+              for f in frames]
+    per_level = measure_max_dcn_offset(loaded, cfg.model, images=images)
+    mx, eff, rec = check_dcn_halo(loaded, cfg.model, warn=False,
+                                  images=images)
+    log("checkpoint", f"DCN offsets on {len(images)} clip frames: max per "
+                      f"level (P2..P5) {[round(float(m), 4) for m in per_level]}"
+                      f" px, {mx:.4f} overall; halos in effect {eff}, "
+                      f"recommended {rec}")
+    if rec != eff:
+        m = cfg.model
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            m, semantic_head=dataclasses.replace(m.semantic_head,
+                                                 dcn_halo=rec)))
+    results, stats = phase_slice(dev, cfg, loaded, frames, "checkpoint")
+    # one launch a decoder stage and frame of the pair: 14 a frame at the
+    # named configs' 7 stages
+    per_frame = 2 * sum(cfg.model.slot_head.per_dh_num_heads)
+    n_sa = stats["launches"]["slot_attention_hopper_f32"]
+    if n_sa != per_frame * len(frames):
+        raise AssertionError(f"{n_sa} f32 slot-attention launches in "
+                             f"{len(frames)} frames, not {per_frame} a "
+                             "frame")
+    cfg_p = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, slot_head=dataclasses.replace(cfg.model.slot_head,
+                                                 retriever_impl="jax")))
+    plain = phase_slice_results(loaded, cfg_p, frames)
+    stats["routes_differ"] = _routes_agree(loaded, cfg, cfg_p, frames, dev,
+                                           results, plain)
+    stats["halos"] = dict(per_level_max=per_level.tolist(), in_effect=eff,
+                          recommended=rec)
+    log("checkpoint", f"f32 Pallas-Retriever path == plain-Retriever path "
+                      f"on {len(frames)} frames (differences above, if "
+                      f"any); steady {stats['steady_ms_per_frame']:.2f} ms "
+                      f"a frame, peak {stats['peak_mem_gib']:.2f} GiB")
+    del loaded
+    return stats, pth, cfg
+
+
+def write_cli_dataset(root, videos):
+    """``videos`` (lists of uint8 BGR [1, h, w, 3] frames) as a
+    Cityscapes-VPS-style dataset on disk: images, the annotation json, and
+    ground-truth panoptic PNGs with their json (a road segment and one car
+    per frame), as tests/test_torch_slice.py writes its fixture."""
+    import cv2
+    from PIL import Image
+
+    from slotvps_tpu_torch.eval.color import CITYSCAPES_CATEGORIES, id2rgb
+
+    img_dir, truth_dir = root / "img", root / "gt"
+    img_dir.mkdir(parents=True)
+    truth_dir.mkdir()
+    h, w = videos[0][0].shape[1:3]
+    images, gt_images, gt_annos = [], [], []
+    for v, frames in enumerate(videos, start=1):
+        for f, img in enumerate(frames, start=1):
+            id_map = np.full((h, w), 1, np.uint32)
+            id_map[h // 2:h // 2 + h // 8, w // 8 * f:w // 8 * f + w // 6] \
+                = 1001
+            segs = [{"id": i, "category_id": c, "iscrowd": 0,
+                     "area": int((id_map == i).sum())}
+                    for i, c in ((1, 0), (1001, 11))]
+            name = f"{v:04d}_{f:04d}_city_newImg8bit.png"
+            cv2.imwrite(str(img_dir / name), img[0])
+            iid = v * 10000 + f
+            images.append({"id": iid, "file_name": name, "height": h,
+                           "width": w})
+            gt_images.append({"id": iid, "file_name": name})
+            gt_annos.append({"segments_info": segs})
+            Image.fromarray(id2rgb(id_map)).save(
+                truth_dir / name.replace("_newImg8bit.png",
+                                         "_final_mask.png"))
+    ann, gt_json = root / "ann.json", root / "gt_pan.json"
+    cats = list(CITYSCAPES_CATEGORIES)
+    ann.write_text(json.dumps({"images": images, "annotations": [],
+                               "categories": cats}))
+    gt_json.write_text(json.dumps({"images": gt_images,
+                                   "annotations": gt_annos,
+                                   "categories": cats}))
+    return ann, img_dir, truth_dir, gt_json
+
+
+def phase_cli(dev, cfg, pth, videos, root):
+    """The eval CLI's main on the card, as a user runs it with a reference
+    checkpoint: ``--checkpoint <pth> --save_diff_fig`` over ``videos`` (2 x
+    2 frames at 1024x2048) on ``cfg``'s path (named_config patched to it,
+    nframes_per_video 2); it must return a VPQ summary of finite numbers,
+    print its halo line, and write pred.json and pan_diff/*.png."""
+    import contextlib
+    import io
+
+    from slotvps_tpu_torch.cli import test_eval_vpq as cli
+
+    ann, img_dir, truth_dir, gt_json = write_cli_dataset(root / "cli",
+                                                         videos)
+    run_cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, nframes_per_video=len(videos[0])))
+    named = cli.named_config
+    cli.named_config = lambda name: run_cfg
+    out = root / "cli" / "out" / "out.pkl"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            summary = cli.main([
+                "--device", str(dev), "--checkpoint", str(pth),
+                "--save_diff_fig", "--ann_file", str(ann), "--img_prefix",
+                str(img_dir), "--out", str(out), "--truth_dir",
+                str(truth_dir), "--pan_gt_json_file", str(gt_json)])
+    finally:
+        cli.named_config = named
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    (root / "cli" / "cli_stdout.txt").write_text(text)
+    out_dir = root / "cli" / "out" / "out_pans_unified"
+    n_frames = sum(len(v) for v in videos)
+    n_diff = len(list((out_dir / "pan_diff").glob("*.png")))
+    halo = [x for x in text.splitlines() if x.startswith("DCN offsets")]
+    vpq = {k: summary[k] for k in ("vpq_all", "vpq_thing", "vpq_stuff")} \
+        if summary else None
+    log("cli", f"main(--checkpoint, --save_diff_fig) on {len(videos)} "
+               f"videos x {len(videos[0])} frames at "
+               f"{videos[0][0].shape[1]}x{videos[0][0].shape[2]}: {wall:.1f} "
+               f"s (build, halo check, inference, fusion and VPQ); "
+               f"{halo}; {n_diff} pan_diff PNGs; VPQ {vpq}")
+    if not (summary and halo and n_diff == n_frames
+            and (out_dir / "pred.json").exists()
+            and all(np.isfinite(v) for v in vpq.values())):
+        raise AssertionError("the CLI's run with a checkpoint did not give "
+                             "a VPQ summary, its halo line and the diff "
+                             "figures")
+    return dict(wall_s=wall, vpq=vpq)
 
 
 def train_config():
@@ -2465,12 +2838,13 @@ def _device_time_by_kernel(prof):
     return by_name
 
 
-def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, serving_rows,
+def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_rows, serving_rows,
            fused_rows, stats, build_s):
     """The kernels line: the DCN per frame (sums over its 12 shapes) in
     each dtype, its f32-model bf16 route and its backward per training step
     (sums over the step's 12 shapes), the postprocess kernels at the given
-    K's rows, sseg, and slot attention per frame (its 14 calls).
+    K's rows, sseg, and slot attention in bf16 and in f32 per frame (its 14
+    calls; ``sa_rows``).
     ``launches`` comes from the run of the path each kernel belongs to
     (KERNELS); ``serving_rows`` are the claim scan (one frame, K = 100)
     and the two postproc_v3 entries only tests reach, whose launches are
@@ -2513,12 +2887,13 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_row, serving_rows,
             name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], build_s=build_s["postproc_v3"]))
-    rows.append(dict(
-        name="slot_attention_hopper", max_abs_err=sa_row["max_abs_err"],
-        ms=sa_row["ms"], plain_ms=sa_row["plain_ms"],
-        bound_ms=sa_row["bound_ms"], bound_by=sa_row["bound_by"],
-        bound_parts_ms=sa_row["bound_parts_ms"],
-        build_s=build_s["slot_attention"]))
+    for sa_row in sa_rows:
+        rows.append(dict(
+            name=sa_row["kernel"], max_abs_err=sa_row["max_abs_err"],
+            ms=sa_row["ms"], plain_ms=sa_row["plain_ms"],
+            bound_ms=sa_row["bound_ms"], bound_by=sa_row["bound_by"],
+            bound_parts_ms=sa_row["bound_parts_ms"],
+            build_s=build_s["slot_attention"]))
     for name, row in serving_rows.items():
         lib = "claim_scan" if name == "claim_scan_hopper" else "postproc_v3"
         rows.append(dict(
@@ -2563,7 +2938,8 @@ def main():
                 for dtype in (torch.float32, torch.bfloat16)}
     pp_rows = phase_postproc_kernels(dev)
     sseg_row = phase_sseg_kernel(dev)
-    sa_row = phase_slot_attention(dev)
+    sa_rows = [phase_slot_attention(dev),
+               phase_slot_attention(dev, dtype=torch.float32)]
     phase_batch_invariance(dev)
     top2_rows = phase_top2_hist(dev)
     phase_claim_edges(dev)
@@ -2571,6 +2947,17 @@ def main():
     model, frames = prepare(dev, cfg)
     results, stats = phase_slice(dev, cfg, model, frames, "bf16")
     results32, stats32 = phase_slice(dev, cfg32, model, frames[:3], "f32")
+    # the path a user takes to evaluate published weights: a reference
+    # .pth of the same weights, the halo check, the f32 Pallas-Retriever
+    # path; then the eval CLI on it
+    scratch = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        ckpt_stats, pth, cfg_ckpt = phase_checkpoint(dev, model, frames[:3],
+                                                     scratch)
+        phase_cli(dev, cfg_ckpt, pth,
+                  [frames[:2], make_clip(H, W, 2, seed=3)], scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     phase_postproc(model, cfg, frames, dev)
     fused_rows, fused_stats = phase_fused_chain(dev, model, cfg, frames[0])
     phase_stages(model, cfg, frames, "bf16")
@@ -2599,9 +2986,10 @@ def main():
     if k_path not in pp_rows:
         raise AssertionError(f"the clip took ladder branch {k_path}, not "
                              f"one of the timed shapes {list(pp_rows)}")
-    kernels = report(dcn_rows, bwd_rows, pp_rows[k_path], sseg_row, sa_row,
+    kernels = report(dcn_rows, bwd_rows, pp_rows[k_path], sseg_row, sa_rows,
                      serving_rows, fused_rows,
                      {"bf16": stats, "f32": stats32, "train": train_stats,
+                      "checkpoint": ckpt_stats,
                       "fused_chain": fused_stats,
                       "train_f32": train32_stats,
                       "batched_pallas": batched32_stats,

@@ -4,6 +4,7 @@
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
     python3 kernel_variants.py slot_attention
+    python3 kernel_variants.py slot_attention_f32
     python3 kernel_variants.py deform_conv
     python3 kernel_variants.py dcn_backward
     python3 kernel_variants.py dcn_f32
@@ -16,7 +17,7 @@ replacements (VARIANTS below; a replacement of three strings edits the
 named header of ``csrc/`` instead), compiled with the port's nvcc flags
 into a temporary directory and loaded with ctypes.  Slot attention runs at
 the decoder's two largest pixel counts (q [1, 100, 256], k and v [1, P, 256]
-bf16), the bf16 DCN forward at three shapes of a 1024x2048 frame (bf16 in
+bf16; ``slot_attention_f32``: the same in f32, the f32 kernel), the bf16 DCN forward at three shapes of a 1024x2048 frame (bf16 in
 and out), the bf16 DCN backward (``dcn_backward``: the same source, its
 passes and their parts) at P2 and P4 of the 800x1600 training crop, B = 2,
 256 -> 256; ``dcn_f32`` and ``dcn_backward_f32`` do the same for the f32
@@ -92,6 +93,16 @@ VARIANTS = {"slot_attention": {
                          "          wgmma<CHH",
                          "        for (int c = 0; c < 1; ++c)\n"
                          "          wgmma<CHH")],
+}, "slot_attention_f32": {
+    "as_is": [],
+    # the k and v tiles are not copied (stale shared memory is used)
+    "no_loads": [("    cp_async16(&dst[swz4(r, f)],",
+                  "    if (P < 0) cp_async16(&dst[swz4(r, f)],")],
+    "no_scores": [("    for (int f = 0; f < CH / 4; ++f) {\n      float4 kv[4];",
+                   "    for (int f = 0; f < 0; ++f) {\n      float4 kv[4];")],
+    "no_exp": [("expf(S[a][j] - mx)", "(S[a][j] - mx)")],
+    "no_pv": [("    for (int px = 0; px < TP; ++px) {",
+               "    for (int px = 0; px < 0; ++px) {")],
 }, "deform_conv": {
     "as_is": [],
     # the weight chunk is not copied (the ring's stale bytes are used)
@@ -249,7 +260,8 @@ VARIANTS = {"slot_attention": {
 }}
 VARIANTS["claim"] = VARIANTS["claim_scan"]
 # kernel variants -> the library whose entry points they load
-SOURCE = {"slot_attention": "slot_attention", "deform_conv": "deform_conv",
+SOURCE = {"slot_attention": "slot_attention",
+          "slot_attention_f32": "slot_attention", "deform_conv": "deform_conv",
           "dcn_backward": "deform_conv", "dcn_f32": "deform_conv",
           "dcn_backward_f32": "deform_conv", "claim_scan": "claim_scan",
           "claim": "postproc_v3"}
@@ -309,20 +321,21 @@ def build(tmp: Path, kernel: str, declare) -> dict:
     return libs
 
 
-def run_slot_attention(libs, dev, stream):
+def run_slot_attention(libs, dev, stream, dtype=torch.bfloat16):
+    entry = sa.ENTRIES[dtype]
     for n_pix in PIXELS:
         g = torch.Generator(device=dev).manual_seed(1)
-        q, k, v = (torch.randn(s, generator=g, device=dev)
-                   .to(torch.bfloat16)
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
                    for s in ((1, SLOTS, 256), (1, n_pix, 256),
                              (1, n_pix, 256)))
         ref = slot_attention(q, k, v)
-        n_runs = sa.sa_grid(1, n_pix, _sms(dev))[0]
+        grid = sa.sa_f32_grid if dtype == torch.float32 else sa.sa_grid
+        n_runs = grid(1, n_pix, _sms(dev))[0]
         out = torch.empty((1, SLOTS, 256), device=dev)
         part = torch.empty((1, n_runs, SLOTS, 256), device=dev)
         for name, lib in libs.items():
             def run(lib=lib):
-                rc = lib.sa_forward_bf16(
+                rc = getattr(lib, entry)(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     out.data_ptr(), part.data_ptr(), 1, SLOTS, n_pix,
                     n_runs, stream)
@@ -565,9 +578,11 @@ def main():
         raise SystemExit("kernel_variants: needs a CUDA device")
     setup_precision()
     dev = torch.device("cuda")
-    mod = {"slot_attention": sa, "claim_scan": cs,
-           "claim": pv3}.get(kernel, dc)
+    mod = {"slot_attention": sa, "slot_attention_f32": sa,
+           "claim_scan": cs, "claim": pv3}.get(kernel, dc)
     run = {"slot_attention": run_slot_attention,
+           "slot_attention_f32": lambda libs, dev, stream: run_slot_attention(
+               libs, dev, stream, torch.float32),
            "deform_conv": run_deform_conv,
            "dcn_backward": run_dcn_backward, "dcn_f32": run_dcn_f32,
            "dcn_backward_f32": run_dcn_backward_f32,

@@ -8,14 +8,18 @@ pan_pred/*.png -> compute VPQ at window sizes 0, 5, 10, 15.  Dataset,
 fusion and VPQ are the port's own copies (``slotvps_tpu_torch/data``,
 ``slotvps_tpu_torch/eval``).
 
-Weights come from the port's seeded init: loading a published ``.pth`` is
-not ported yet.
+Weights come from ``--checkpoint``: a reference ``.pth`` (converted on
+load, ``utils/checkpoint.load_torch_checkpoint``) or a file of the port's
+``save_checkpoint``; without one, from the seeded init.  With a checkpoint
+the DCN halos are checked on three frames of the dataset
+(``utils/diagnostics.check_dcn_halo``) and raised where the offsets would
+clamp.
 
 Usage:
   python -m slotvps_tpu_torch.cli.test_eval_vpq --tuned \
       --ann_file data/cityscapes_vps/im_all_info_val_city_vps.json \
       --img_prefix data/cityscapes_vps/val/img_all \
-      --out work_dirs/out.pkl \
+      --checkpoint weights.pth --out work_dirs/out.pkl \
       --truth_dir data/cityscapes_vps/val/panoptic_video \
       --pan_gt_json_file data/cityscapes_vps/panoptic_gt_val_city_vps.json
 """
@@ -39,8 +43,12 @@ from slotvps_tpu_torch.data.loader import PrefetchLoader
 from slotvps_tpu_torch.eval import vpq as vpq_mod
 from slotvps_tpu_torch.eval.fusion import inference_panoptic_video, unify_pan_result
 from slotvps_tpu_torch.inference import (BatchedVideoPipeline,
-                                         InferencePipeline, VideoScanner)
+                                         InferencePipeline, VideoScanner,
+                                         _device_normalize)
 from slotvps_tpu_torch.models.detector import init_model
+from slotvps_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                load_torch_checkpoint)
+from slotvps_tpu_torch.utils.diagnostics import check_dcn_halo
 from slotvps_tpu_torch.utils.precision import setup_precision
 
 
@@ -48,11 +56,17 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="slotvps_tpu_torch test + VPQ "
                                             "eval (streaming)")
     p.add_argument("--config", default="r50_fpn_slotvps")
+    p.add_argument("--checkpoint", default=None,
+                   help=".pth (reference format, converted on load), a "
+                        "state dict of the port's save_checkpoint, or empty "
+                        "for the seeded init")
     p.add_argument("--ann_file", required=True)
     p.add_argument("--img_prefix", required=True)
     p.add_argument("--out", default="work_dirs/slotvps_tpu_torch/out.pkl")
     p.add_argument("--load", action="store_true",
                    help="resume from the cached *_pred_pans_2ch.pkl")
+    p.add_argument("--n_video", type=int, default=50,
+                   help="accepted as the JAX CLI accepts it; not read")
     p.add_argument("--truth_dir", default=None)
     p.add_argument("--pan_gt_json_file", default=None)
     p.add_argument("--pan_im_json_file", default=None)
@@ -87,6 +101,16 @@ def parse_args(argv=None):
                         "same chunk alignment as --scan; gives the "
                         "streaming results wherever batch N gives the "
                         "floats of batch 1")
+    p.add_argument("--save_diff_fig", action="store_true",
+                   help="write pan_diff/*.png error maps (pred - gt, "
+                        "zeroed where gt == 0; reference eval_vpq.py:463-470)")
+    p.add_argument("--debug_postproc", action="store_true",
+                   help="per-frame postprocess diagnostics: kept thing "
+                        "classes and scores, track ids and per-id pixel "
+                        "areas")
+    p.add_argument("--draw_line_charts", action="store_true",
+                   help="per-video / per-category VPQ figures (reference "
+                        "--draw_line_charts)")
     return p.parse_args(argv)
 
 
@@ -100,6 +124,45 @@ def tune_config(cfg):
             dcn_halo=(2, 3, 4, 6)[:m.semantic_head.num_levels]),
         postprocess=dataclasses.replace(m.postprocess, impl="fused"))
     return dataclasses.replace(cfg, model=m)
+
+
+def build_model(args, cfg, device):
+    """The model of ``cfg.model`` on ``device``, its weights from
+    ``args.checkpoint`` (the JAX CLI's ``build_params``)."""
+    model = init_model(torch.Generator().manual_seed(args.seed), cfg.model,
+                       device=device)
+    if args.checkpoint and args.checkpoint.endswith(".pth"):
+        model.load_state_dict(load_torch_checkpoint(args.checkpoint,
+                                                    cfg.model), strict=True)
+    elif args.checkpoint:
+        load_checkpoint(args.checkpoint, model)
+    else:
+        print("WARNING: no checkpoint given — using random init")
+    return model
+
+
+def calibrate_halos(model, cfg, dataset, device):
+    """A checkpoint's offsets against the DCN halos, measured on frames 0,
+    n/2 and n-1 of ``dataset`` ([1, H, W, 3] uint8 each) as the device
+    normalizes them; returns ``cfg`` with ``semantic_head.dcn_halo`` raised
+    where they would clamp."""
+    frames = []
+    for i in sorted({0, len(dataset) // 2, len(dataset) - 1}):
+        item = dataset[i]
+        frames.append(_device_normalize(
+            torch.from_numpy(item["img"]).to(device), cfg.data,
+            valid_hw=item["meta"]["img_shape"][:2]))
+    mx, eff, rec = check_dcn_halo(model, cfg.model, warn=False,
+                                  images=frames)
+    print(f"DCN offsets: checkpoint emits up to {mx:.2f} px (per-level "
+          f"halos in effect: {eff} px)")
+    if rec == eff:
+        return cfg
+    print(f"WARNING: raising dcn_halo {eff} -> {rec} so no sample clamps")
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, semantic_head=dataclasses.replace(m.semantic_head,
+                                             dcn_halo=rec)))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -199,11 +262,11 @@ def main(argv=None):
             pred_pans_2ch = pickle.load(f)
         names = sorted(i["file_name"] for i in dataset.img_infos)
     else:
-        print("WARNING: no checkpoint loading yet — using random init")
-        model = init_model(torch.Generator().manual_seed(args.seed),
-                           cfg.model, device=device)
+        model = build_model(args, cfg, device)
         n_params = sum(p.numel() for p in model.parameters())
         print(f"Model Params : {n_params / 1e6:.2f} M on {device}")
+        if args.checkpoint:
+            cfg = calibrate_halos(model, cfg, dataset, device)
 
         ssegs, panos, cls_inds, obj_ids, names = [], [], [], [], []
         t0 = time.time()
@@ -214,6 +277,16 @@ def main(argv=None):
             cls_inds.append(res.cls_inds)
             obj_ids.append(res.obj_ids)
             names.append(osp.basename(meta["filename"]))
+            if args.debug_postproc:
+                ids, areas = np.unique(res.panoptic, return_counts=True)
+                area_of = dict(zip(ids.tolist(), areas.tolist()))
+                thing_areas = [area_of.get(cfg.model.stuff_num + r, 0)
+                               for r in range(len(res.cls_inds))]
+                print(f"[postproc] {names[-1]}: {len(res.cls_inds)} things "
+                      f"kept cls={res.cls_inds.tolist()} "
+                      f"prob={[round(float(p), 3) for p in res.cls_prob]} "
+                      f"obj_ids={res.obj_ids.tolist()} areas={thing_areas} "
+                      f"void={area_of.get(255, 0)}")
             if len(names) % 50 == 0:
                 dt = time.time() - t0
                 print(f"[{len(names)}/{len(dataset)}] "
@@ -289,10 +362,15 @@ def main(argv=None):
                        for i in gt_images)
         gt_pans = [np.array(Image.open(osp.join(args.truth_dir, f)))
                    for f in files]
+        if args.save_diff_fig:
+            vpq_mod.save_diff_figs(pred_pans, gt_pans,
+                                   [str(i["id"]) + ".png" for i in gt_images],
+                                   output_dir)
         summary = vpq_mod.final_eval(
             pred_json["annotations"], gt_annos, gt_pans, pred_pans, cats,
             output_dir=output_dir,
-            nframes_per_video=cfg.eval.nframes_per_video)
+            nframes_per_video=cfg.eval.nframes_per_video,
+            draw_charts=args.draw_line_charts)
         for key in ("vpq_all", "vpq_thing", "vpq_stuff", "vpq_errp"):
             print(f"{key}:{summary[key]:.4f}")
     return summary

@@ -117,9 +117,10 @@ class SemanticHeadConfig:
     # independently: fine levels need smaller sampling ranges than coarse
     # ones, and the halo bounds the window of input pixels a tap can reach
     # (the backward's dx pass in csrc/deform_conv.cu scans that window).
-    # Checkpoint loading measures the max offset the converted conv_offset
-    # heads emit on a calibration image PER LEVEL and auto-raises any level
-    # that would clamp (utils/diagnostics.py).
+    # With a checkpoint, the eval CLI measures the max offset the converted
+    # conv_offset heads emit on three dataset frames PER LEVEL and raises
+    # any level that would clamp (cli/test_eval_vpq.py calibrate_halos,
+    # utils/diagnostics.py check_dcn_halo).
     dcn_halo: "int | Tuple[int, ...]" = 0
 
     def level_halo(self, level: int) -> int:
@@ -165,8 +166,8 @@ class SlotHeadConfig:
     )
     apply_temporal_query_atten_stages: Tuple[int, ...] = (3, 4, 5, 6)
     # 'jax' = plain slot attention in the activations' dtype; 'pallas' =
-    # the Hopper kernel (csrc/slot_attention.cu: bf16 in, f32 scores,
-    # softmax and output).
+    # the Hopper kernel (csrc/slot_attention.cu: bf16 or f32 in, f32
+    # scores, softmax and output).
     retriever_impl: str = "jax"
 
 

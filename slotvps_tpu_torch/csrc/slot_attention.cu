@@ -1,10 +1,11 @@
-// Slot-softmax cross-attention (the Retriever's core) for Hopper, bf16 in,
-// f32 out.
+// Slot-softmax cross-attention (the Retriever's core) for Hopper, bf16 or
+// f32 in, f32 out.
 //
 // Replaces the TPU kernel slotvps_tpu/ops/pallas/slot_attention.py:_kernel
 // (slot_attention_pallas, called by retriever_attention_pallas).  It
 // computes what slotvps_tpu_torch/ops/slot_attention.py:slot_attention
-// computes, for q [B, L, C] and k, v [B, P, C] bf16, L <= 128, C = 256:
+// computes, for q [B, L, C] and k, v [B, P, C], L <= 128, C = 256: bf16
+// below (sa_forward_bf16), f32 further down (sa_forward_f32):
 //
 //   out[b, l, :] = sum_p softmax over l (q[b, l] . k[b, p]) * v[b, p, :]
 //
@@ -301,6 +302,242 @@ __global__ void slot_attn_reduce_kernel(const float* __restrict__ part,
   out[e] = s;
 }
 
+// ---------------------------------------------------------------------------
+// f32: q, k and v f32, every product an exact f32 FMA on the CUDA cores.
+//
+// The same function in f32 (the JAX kernel's f32 instance): f32 scores, the
+// per-pixel softmax over the valid slots, f32 sums of p.v, f32 out.  One
+// 1024x2048 frame runs it 14 times, sum(P) = 692,224: k and v are 1.42 GB
+// (0.42 ms of HBM) and 4*L*C*sum(P) = 70.9 GFLOP of FMA work (1.06 ms at
+// 67 TFLOP/s), so operations bound it.
+//
+// Design: the bf16 kernel's structure, a grid of pixel runs (G, 1, B) from
+// sa_f32_grid (G = one run an SM), pass 1 writing part[b][g][l][c] and
+// slot_attn_reduce_kernel summing the G partials in order.  256 threads a
+// block, one block an SM (shared memory), all 256 channels a block, so
+// each score is computed once:
+//   - q [NQ x 256] once a block, zeros past L;
+//   - per 64-pixel tile, the k tile [64 x 256] by cp.async into the tile
+//     buffer (zeros past P); each FMA step reads q and k as float4s over 4
+//     channels (rows XOR-swizzled per 16 bytes, so that 8 neighbouring rows
+//     sit in 8 bank groups);
+//   - S [NQ x 64] in registers, thread (pg, sg) = (tid / 16, tid % 16)
+//     holding slots sg + 16 i and pixels pg + 16 j;
+//   - the v tile [64 x 256] into the same buffer once the scores are taken,
+//     landing during the softmax;
+//   - the softmax in registers: a pixel's NQ slots lie in 16 lanes of one
+//     warp, so its max and sum are four shuffles each; p goes to its own
+//     buffer as [pixel][slot];
+//   - out^T [NQ x 256] in registers, thread (cg, sg) holding slots
+//     4 sg + 64 a + {0..3} and channels 4 cg + 64 e + {0..3}: per pixel,
+//     NQ / 64 float4s of p and four of v feed NQ / 2 FMAs.
+// What bounds it (kernel_variants.py slot_attention_f32, H100, P = 131072,
+// 0.53 ms): the FMA pipes of one block of 8 warps an SM; the scores and
+// p.v take ~0.21 ms each, ~60 % of the FMA peak on 128 padded slots; the
+// copies not hidden ~0.04 ms, expf ~0.03.  Shared memory:
+// 4 * (NQ + 64 + NQ / 4) * 256 B, 224 KB at NQ = 128.
+constexpr int F_THREADS = 256;
+
+template <int NQ>
+struct SaF32Smem {
+  static constexpr int q_floats = NQ * CH;
+  static constexpr int t_floats = TP * CH;     // the k tile, then the v tile
+  static constexpr int p_floats = TP * NQ;
+  static constexpr size_t bytes =
+      4 * (size_t)(q_floats + t_floats + p_floats);
+};
+
+// float4 index of (row, 4 f) in a [rows][256] f32 tile, swizzled
+__device__ __forceinline__ int swz4(int row, int f) {
+  return row * (CH / 4) + (f ^ (row & 7));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [px0, px0 + 64) of a [P, 256] f32 tensor into a swizzled tile,
+// zeros past P; one cp.async group
+__device__ __forceinline__ void load_tile_f32(float4* dst, const float* src,
+                                              int px0, int P, int tid) {
+  for (int i = tid; i < TP * CH / 4; i += F_THREADS) {
+    const int r = i / (CH / 4), f = i % (CH / 4);
+    const bool in = px0 + r < P;
+    cp_async16(&dst[swz4(r, f)], in ? src + (size_t)(px0 + r) * CH + 4 * f
+                                     : src,
+               in ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+template <int NQ>
+__global__ void __launch_bounds__(F_THREADS, 1)
+slot_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ part,
+                     int L, int P, int n_tiles) {
+  constexpr int NS = NQ / 16;   // slots a thread holds in S
+  constexpr int NA = NQ / 64;   // groups of 4 slots a thread holds in out
+  extern __shared__ float4 saf_raw[];
+  float4* s_q = saf_raw;                             // [NQ][64] swizzled
+  float4* s_t = s_q + SaF32Smem<NQ>::q_floats / 4;   // [TP][64] swizzled
+  float* s_p = reinterpret_cast<float*>(s_t + SaF32Smem<NQ>::t_floats / 4);
+
+  const int tid = threadIdx.x;
+  const int g = blockIdx.x;
+  const int G = gridDim.x;
+  const int b = blockIdx.z;
+  const int t_lo = (int)((long)g * n_tiles / G);
+  const int n_my = (int)((long)(g + 1) * n_tiles / G) - t_lo;
+  const float* kb = k + (size_t)b * P * CH;
+  const float* vb = v + (size_t)b * P * CH;
+
+  {
+    const float4* qb = reinterpret_cast<const float4*>(q + (size_t)b * L * CH);
+    for (int i = tid; i < NQ * CH / 4; i += F_THREADS) {
+      const int r = i / (CH / 4), f = i % (CH / 4);
+      s_q[swz4(r, f)] = r < L ? qb[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  if (n_my > 0) load_tile_f32(s_t, kb, t_lo * TP, P, tid);
+
+  const int sg = tid & 15;    // slot group (both products)
+  const int pg = tid >> 4;    // pixel group (scores)
+  const int cg = tid >> 4;    // channel group (p.v)
+  float o[NA][4][16];         // out: [a][slot 0..3][channel 0..15]
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) o[a][s][c] = 0.f;
+
+  for (int i = 0; i < n_my; ++i) {
+    const int px0 = (t_lo + i) * TP;
+    cp_async_wait_all();  // this thread's part of the k tile has landed
+    __syncthreads();      // ... every thread's; q too on the first tile
+
+    // 1. S[a][j] = q[sg + 16 a] . k[pg + 16 j], channels in order
+    float S[NS][4];
+#pragma unroll
+    for (int a = 0; a < NS; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) S[a][j] = 0.f;
+#pragma unroll 2
+    for (int f = 0; f < CH / 4; ++f) {
+      float4 kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = s_t[swz4(pg + 16 * j, f)];
+#pragma unroll
+      for (int a = 0; a < NS; ++a) {
+        const float4 qv = s_q[swz4(sg + 16 * a, f)];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          S[a][j] = fmaf(qv.x, kv[j].x, S[a][j]);
+          S[a][j] = fmaf(qv.y, kv[j].y, S[a][j]);
+          S[a][j] = fmaf(qv.z, kv[j].z, S[a][j]);
+          S[a][j] = fmaf(qv.w, kv[j].w, S[a][j]);
+        }
+      }
+    }
+    __syncthreads();      // every thread is done with the k tile
+    load_tile_f32(s_t, vb, px0, P, tid);   // v lands during the softmax
+
+    // 2. the softmax over the valid slots of each pixel, p to shared memory
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int px = pg + 16 * j;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int a = 0; a < NS; ++a)
+        if (sg + 16 * a < L) mx = fmaxf(mx, S[a][j]);
+#pragma unroll
+      for (int m = 1; m < 16; m <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, m));
+      float z = 0.f;
+#pragma unroll
+      for (int a = 0; a < NS; ++a) {
+        S[a][j] = sg + 16 * a < L ? expf(S[a][j] - mx) : 0.f;
+        z += S[a][j];
+      }
+#pragma unroll
+      for (int m = 1; m < 16; m <<= 1)
+        z += __shfl_xor_sync(0xffffffffu, z, m);
+      const float rz = px0 + px < P ? 1.f / z : 0.f;
+#pragma unroll
+      for (int a = 0; a < NS; ++a) s_p[px * NQ + sg + 16 * a] = S[a][j] * rz;
+    }
+    cp_async_wait_all();  // this thread's part of the v tile has landed
+    __syncthreads();      // p and v are in place for every thread
+
+    // 3. out^T[slots][channels] += p^T . v, pixels in order
+    const float4* p4 = reinterpret_cast<const float4*>(s_p);
+#pragma unroll 2
+    for (int px = 0; px < TP; ++px) {
+      float4 pv[NA], vv[4];
+#pragma unroll
+      for (int a = 0; a < NA; ++a) pv[a] = p4[px * (NQ / 4) + sg + 16 * a];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vv[e] = s_t[swz4(px, cg + 16 * e)];
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        const float ps[4] = {pv[a].x, pv[a].y, pv[a].z, pv[a].w};
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[a][s][4 * e + 0] = fmaf(ps[s], vv[e].x, o[a][s][4 * e + 0]);
+            o[a][s][4 * e + 1] = fmaf(ps[s], vv[e].y, o[a][s][4 * e + 1]);
+            o[a][s][4 * e + 2] = fmaf(ps[s], vv[e].z, o[a][s][4 * e + 2]);
+            o[a][s][4 * e + 3] = fmaf(ps[s], vv[e].w, o[a][s][4 * e + 3]);
+          }
+      }
+    }
+    __syncthreads();      // every thread is done with p and v
+    if (i + 1 < n_my) load_tile_f32(s_t, kb, px0 + TP, P, tid);
+  }
+
+  // this block's partial sum part[b][g][l][c]
+  float* pb = part + ((size_t)b * G + g) * L * CH;
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int l = 4 * sg + 64 * a + s;
+      if (l >= L) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        *reinterpret_cast<float4*>(pb + (size_t)l * CH + 4 * cg + 64 * e) =
+            make_float4(o[a][s][4 * e], o[a][s][4 * e + 1],
+                        o[a][s][4 * e + 2], o[a][s][4 * e + 3]);
+    }
+}
+
+template <int NQ>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       float* part, int B, int L, int P, int G,
+                       cudaStream_t s) {
+  const size_t smem = SaF32Smem<NQ>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      slot_attn_f32_kernel<NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  slot_attn_f32_kernel<NQ><<<dim3(G, 1, B), F_THREADS, smem, s>>>(
+      q, k, v, part, L, P, (P + TP - 1) / TP);
+  return cudaGetLastError();
+}
+
 // A 3-D map of a [B, rows, 256] bf16 tensor; boxes of 64 channels x
 // box_rows rows of one batch element, 128-byte swizzle, zeros outside.
 bool make_map(CUtensorMap* map, const void* base, int B, int rows,
@@ -365,6 +602,31 @@ extern "C" int sa_forward_bf16(const void* q, const void* k, const void* v,
   const size_t n = (size_t)B * L * CH;
   slot_attn_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<float*>(out), B, L, G);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the f32 pass 1 for L <= 64 (nq = 64) or L <= 128.
+extern "C" int sa_f32_smem_bytes(int nq) {
+  return nq == 64 ? (int)SaF32Smem<64>::bytes : (int)SaF32Smem<128>::bytes;
+}
+
+// sa_forward_bf16's contract with f32 q [B, L, 256], k and v [B, P, 256].
+extern "C" int sa_forward_f32(const void* q, const void* k, const void* v,
+                              void* out, void* part, int B, int L, int P,
+                              int G, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (L < 1 || L > 128 || P < 1 || G < 1 || G > (P + TP - 1) / TP)
+    return (int)cudaErrorInvalidValue;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* pt = static_cast<float*>(part);
+  cudaError_t err = L <= 64 ? launch_f32<64>(qf, kf, vf, pt, B, L, P, G, s)
+                            : launch_f32<128>(qf, kf, vf, pt, B, L, P, G, s);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)B * L * CH;
+  slot_attn_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      pt, static_cast<float*>(out), B, L, G);
   return (int)cudaGetLastError();
 }
 

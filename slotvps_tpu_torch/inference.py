@@ -234,8 +234,8 @@ class BatchedVideoPipeline(_Pipeline):
 
     Videos share a length and a frame shape.  One card: ``devices`` holds
     at most one device (default: the model's); more raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 12, the multi-GPU
-    paths).  Builds call :func:`setup_precision`."""
+    ``NotImplementedError`` (the multi-GPU item of ROADMAP Queue 1).
+    Builds call :func:`setup_precision`."""
 
     def __init__(self, model: Detector, config: Config, batch: int,
                  image_size: Optional[tuple] = None,
@@ -248,7 +248,7 @@ class BatchedVideoPipeline(_Pipeline):
             raise NotImplementedError(
                 "BatchedVideoPipeline runs on one card; sharding the video "
                 "axis over several GPUs is the multi-GPU item of ROADMAP "
-                "Queue 1 (item 12, parallel/)")
+                "Queue 1 (parallel/)")
         if devices and torch.device(devices[0]) != device:
             raise ValueError(f"devices {devices} do not hold the model "
                              f"({device})")

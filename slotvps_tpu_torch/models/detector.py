@@ -3,7 +3,8 @@
 Counterpart of ``slotvps_tpu/models/detector.py``: one module tree, and the
 same two-step inference split — ``extract_features`` once per frame (its
 result is carried as the next frame's reference features) and
-``decode_pair`` for the joint two-frame slot decode.  Training calls the
+``decode_pair`` for the joint two-frame slot decode (``forward_frame`` runs
+both from pixels).  Training calls the
 backbone module directly (the JAX package's ``apply_backbone`` picks a
 backbone function; here ``model.backbone`` is that choice) and
 ``decode_pair_train`` (per-stage auxiliary outputs, the reference frame's
@@ -12,9 +13,9 @@ outputs and the normalized fine feature).
 Ported configuration space: the ResNet backbone without stage plugins or
 R52 stem, sine position embeddings, ``compute_dtype`` "float32" or
 "bfloat16" (parameters stay f32 and are cast to the activations' dtype),
-and ``slot_head.retriever_impl`` "jax" (plain slot attention) or, with
-bf16 compute only, "pallas" (the Hopper slot-attention kernel); the rest
-raises ``NotImplementedError``.
+and ``slot_head.retriever_impl`` "jax" (plain slot attention) or "pallas"
+(the Hopper slot-attention kernel, bf16 or f32); the rest raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,11 +72,6 @@ def check_supported(cfg: ModelConfig):
     if cfg.slot_head.retriever_impl not in ("jax", "pallas"):
         unsupported.append(
             f"retriever_impl={cfg.slot_head.retriever_impl!r}")
-    elif (cfg.slot_head.retriever_impl == "pallas"
-          and cfg.compute_dtype != "bfloat16"):
-        # the slot-attention kernel takes bf16 q, k and v only
-        unsupported.append(f"retriever_impl='pallas' with compute_dtype="
-                           f"{cfg.compute_dtype!r}")
     if unsupported:
         raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
 
@@ -229,3 +225,19 @@ def _fg_bn(model: Detector, mask_logits):
     bias = p.bias[0] - p.running_mean[0] * scale
     return mask_logits * scale.to(mask_logits.dtype) \
         + bias.to(mask_logits.dtype)
+
+
+def forward_frame(model: Detector, cfg: ModelConfig, img: torch.Tensor,
+                  ref_img: torch.Tensor) -> FrameOutputs:
+    """The whole one-frame forward from pixels (both frames), the shape the
+    reference runs per test step (vps_temporal_slots.py:207-308): one
+    backbone pass over the batch ``[ref; cur]``, then :func:`decode_pair`."""
+    feats = extract_features(model, cfg, torch.cat([ref_img, img], dim=0))
+    b = img.shape[0]
+    ref_feats = FrameFeatures(
+        feat_trans=tuple(f[:b] for f in feats.feat_trans),
+        fcn_output=feats.fcn_output[:b])
+    cur_feats = FrameFeatures(
+        feat_trans=tuple(f[b:] for f in feats.feat_trans),
+        fcn_output=feats.fcn_output[b:])
+    return decode_pair(model, cfg, ref_feats, cur_feats)

@@ -5,8 +5,12 @@
 of its plain version, :func:`slotvps_tpu_torch.ops.slot_attention.
 slot_attention`.  On CPU tensors it runs the plain version; on CUDA tensors
 it launches the kernel or raises — there is no fallback.  Its contract on
-the card: bf16 q [B, L, 256] with 1 <= L <= 128, bf16 k and v [B, P, 256];
-it returns f32 [B, L, 256].  Its launch geometry is :func:`sa_grid`.
+the card: q [B, L, 256] with 1 <= L <= 128, k and v [B, P, 256], all bf16
+(``sa_forward_bf16``, tensor cores) or all f32 (``sa_forward_f32``, f32 FMA
+on the CUDA cores); it returns f32 [B, L, 256].  Other L or C raise: every
+named config has 100 slots and 256 channels (the JAX kernel pads any L and
+C).  The launch geometry is :func:`sa_grid` (bf16) and
+:func:`sa_f32_grid` (f32).
 """
 
 from __future__ import annotations
@@ -33,36 +37,62 @@ def sa_grid(b: int, n_pix: int, n_sm: int) -> tuple:
     return (min(n_tiles, max(1, n_sm // 2)), 2, b)
 
 
+def sa_f32_grid(b: int, n_pix: int, n_sm: int) -> tuple:
+    """The f32 pass 1's grid (G, 1, B): G runs of 64-pixel tiles, one block
+    a run over all 256 channels (its scores computed once), G about one
+    block an SM for one image.  Like :func:`sa_grid`, a function of P and
+    the card only."""
+    n_tiles = -(-n_pix // TILE_PIXELS)
+    return (min(n_tiles, max(1, n_sm)), 1, b)
+
+
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sa_forward_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.sa_forward_bf16.restype = i
+    lib.sa_forward_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.sa_forward_f32.restype = i
     lib.sa_smem_bytes.argtypes = [i]
     lib.sa_smem_bytes.restype = i
+    lib.sa_f32_smem_bytes.argtypes = [i]
+    lib.sa_f32_smem_bytes.restype = i
     lib.sa_error_string.argtypes = [i]
     lib.sa_error_string.restype = ctypes.c_char_p
 
 
 LIBRARY = KernelLibrary("slot_attention", _declare)
+# the kernel entry of each input dtype
+ENTRIES = {torch.bfloat16: "sa_forward_bf16", torch.float32: "sa_forward_f32"}
+
+
+def f32_smem(n_slots: int) -> int:
+    """Dynamic shared memory of the f32 pass 1 (``SaF32Smem``): q padded to
+    NQ = 64 or 128 slots, one 64-pixel tile of k (then of v) and p [64 x
+    NQ], all f32."""
+    nq = 64 if n_slots <= 64 else 128
+    return 4 * ((nq + TILE_PIXELS) * CHANNELS + TILE_PIXELS * nq)
 
 
 def slot_attention_hopper(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     """out [B, L, C] f32 = sum_p softmax over the L slots (q . k_p) v_p.
 
-    Each call on the card launches the kernel's two passes (partial sums
-    over pixel runs, then their sum in a fixed order) and adds one to
-    ``slot_attention_hopper.launches``."""
+    Each call on the card launches the kernel of q, k and v's dtype (bf16
+    or f32; mixed dtypes raise), its two passes (partial sums over pixel
+    runs, then their sum in a fixed order), and adds one to its count:
+    ``slot_attention_hopper.launches`` for bf16, ``f32_launches`` for
+    f32."""
     tensors = (q, k, v)
     if all(t.device.type == "cpu" for t in tensors):
         return slot_attention(q, k, v)
+    if q.dtype not in ENTRIES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError("slot_attention_hopper takes q, k and v all bfloat16 "
+                        "or all float32 on the card, got "
+                        f"{[str(t.dtype) for t in tensors]}")
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("slot_attention_hopper: q, k and v must all lie on "
                          "one CUDA device (or all on the CPU)")
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError("slot_attention_hopper takes bfloat16 q, k and v on "
-                        f"the card, got {[str(t.dtype) for t in tensors]}")
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
         raise ValueError("slot_attention_hopper takes contiguous, 16-byte "
                          "aligned tensors")
@@ -80,22 +110,28 @@ def slot_attention_hopper(q: torch.Tensor, k: torch.Tensor,
                          f"L = {n_slots}, P = {n_pix}")
 
     lib = LIBRARY.load()
-    n_runs = sa_grid(
+    grid = sa_f32_grid if q.dtype == torch.float32 else sa_grid
+    n_runs = grid(
         b, n_pix,
         torch.cuda.get_device_properties(dev).multi_processor_count)[0]
     out = torch.empty((b, n_slots, c), dtype=torch.float32, device=dev)
     part = torch.empty((b, n_runs, n_slots, c), dtype=torch.float32,
                        device=dev)
+    entry = ENTRIES[q.dtype]
     with torch.cuda.device(dev):
-        rc = lib.sa_forward_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  out.data_ptr(), part.data_ptr(), b, n_slots,
                                  n_pix, n_runs,
                                  torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError("sa_forward_bf16 launch failed: "
+        raise RuntimeError(f"{entry} launch failed: "
                            + lib.sa_error_string(rc).decode())
-    slot_attention_hopper.launches += 1
+    if q.dtype == torch.float32:
+        slot_attention_hopper.f32_launches += 1
+    else:
+        slot_attention_hopper.launches += 1
     return out
 
 
 slot_attention_hopper.launches = 0
+slot_attention_hopper.f32_launches = 0

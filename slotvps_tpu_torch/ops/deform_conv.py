@@ -30,9 +30,11 @@ of the JAX package) and the output takes ``x.dtype``.  Autograd through
 :func:`deform_conv2d` in f32 is ``jax.grad`` of that XLA path: the offset
 gradient is zero on a clamped axis and on an invalid tap.
 
-:func:`deform_conv2d_backward` is the plain version of the backward kernel
-(``slotvps_tpu/ops/pallas/deform_conv.py`` ``_dcn_bwd_kernel``, the Hopper
-kernel in ``csrc/deform_conv.cu``), at the bf16 kernel's rounding points.
+:func:`offset_clamp_stats` measures how much an offset field clamps at a
+halo.  :func:`deform_conv2d_backward` is the plain version of the backward
+kernel (``slotvps_tpu/ops/pallas/deform_conv.py`` ``_dcn_bwd_kernel``, the
+Hopper kernel in ``csrc/deform_conv.cu``), at the bf16 kernel's rounding
+points.
 
 Layouts as in the JAX package: x NHWC, offset NHWC with channels
 ``[tap0_dy, tap0_dx, tap1_dy, ...]``, weight ``[kh, kw, C_in, C_out]``.
@@ -123,6 +125,17 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
             sample = sample.to(compute_dtype).float()
             out = out + sample @ wf[ky, kx]
     return out.to(x.dtype)
+
+
+def offset_clamp_stats(offset: torch.Tensor, halo: int):
+    """How much an offset field would clamp at ``halo`` (the JAX package's
+    ``offset_clamp_stats``): ``offset`` [..., 2*kh*kw] ([dy, dx] per tap)
+    -> ``(max_abs, clamp_rate)`` f32 scalars, the largest |offset|
+    component and the share of taps with either component beyond
+    ``halo``."""
+    a = offset.float().abs()
+    per_tap = a.reshape(*offset.shape[:-1], -1, 2).amax(dim=-1)
+    return a.max(), (per_tap > halo).float().mean()
 
 
 def _tap_geometry(offset, k, h, w, halo):

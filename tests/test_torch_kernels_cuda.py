@@ -8,8 +8,8 @@ precision in f32), the five fused-postprocess
 kernels (theta, claim, argmax with and without its runner-up map, repair,
 hist, sseg), their K-minor entries (theta, claim and argmax-areas on
 [h, w, K] masks), the claim-scan kernel (and both claim loops on
-chip_smoke.py's edge cases) and the slot-attention kernel
-(and its batch invariance); and BatchedVideoPipeline against streaming
+chip_smoke.py's edge cases) and the slot-attention kernel in bf16 and in
+f32 (and its batch invariance); and BatchedVideoPipeline against streaming
 on the bf16 kernel path.
 
 Every test here needs a CUDA device and skips without one.  The file
@@ -24,8 +24,9 @@ of a product) and <= 1e-2 * max |plain| in bf16 (the same three
 bf16 rounding points; a sum in another order moves a rounded value by one
 bf16 ulp now and then), for each of the backward's dx, doff and dW too
 (each summed in a fixed order: equal from run to run); slot attention
-<= 1e-4 * max |plain| (f32 sums in another order); theta within 1e-5 *
-max(1, |theta|) (the sum of exp in another order); the integer outputs of
+<= 1e-4 * max |plain| in bf16 and <= 1e-5 in f32 (f32 sums in another
+order); theta within 1e-5 * max(1, |theta|) (the sum of exp in another
+order); the integer outputs of
 claim, argmax (top2 too), repair, hist, sseg, the K-minor entries and the
 claim scan are bit-identical, given identical inputs; the batched
 pipeline's results equal streaming's bit for bit."""
@@ -485,6 +486,45 @@ def test_slot_attention_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 100, 2048), (2, 100, 4133),
+                                   (2, 20, 1000), (1, 128, 33), (1, 1, 64),
+                                   (1, 64, 777), (1, 65, 64), (2, 100, 1)])
+def test_slot_attention_f32_kernel_matches_plain(cuda_device, shape):
+    """The f32 kernel (f32 q, k and v, exact f32 FMA): within 1e-5 of max
+    of the plain version, one f32 launch a call, equal in two runs, and
+    each batch element's output the bits it gets alone."""
+    b, n_slots, n_pix = shape
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device)
+               for s in ((b, n_slots, 256), (b, n_pix, 256), (b, n_pix, 256)))
+    before = (slot_attention_hopper.launches,
+              slot_attention_hopper.f32_launches)
+    out = slot_attention_hopper(q, k, v)
+    ref = slot_attention(q, k, v)
+    again = slot_attention_hopper(q, k, v)
+    alone = [slot_attention_hopper(q[i:i + 1].contiguous(),
+                                   k[i:i + 1].contiguous(),
+                                   v[i:i + 1].contiguous()) for i in range(b)]
+    torch.cuda.synchronize()
+    assert (slot_attention_hopper.launches,
+            slot_attention_hopper.f32_launches) == (before[0],
+                                                    before[1] + 2 + b)
+    assert out.dtype == torch.float32 and out.shape == (b, n_slots, 256)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err
+    assert torch.equal(out, again)
+    assert all(torch.equal(out[i:i + 1], alone[i]) for i in range(b))
+
+
+@pytest.mark.cuda
+def test_slot_attention_refuses_mixed_dtypes_on_the_card(cuda_device):
+    q, k, v = (torch.randn(s, device=cuda_device)
+               for s in ((1, 100, 256), (1, 64, 256), (1, 64, 256)))
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        slot_attention_hopper(q, k.to(torch.bfloat16), v)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_pix", [4096, 4133])   # 64-pixel tiles, and not
 @pytest.mark.parametrize("n_slots", [100, 128])
 def test_slot_attention_tiles_and_batch(cuda_device, n_slots, n_pix):
@@ -648,8 +688,11 @@ def test_postproc_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((1, 129, 256), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="L <= 128"):
         slot_attention_hopper(q, q, q)
+    # bf16 and f32 are taken; mixed dtypes and others are not
     with pytest.raises(TypeError, match="bfloat16"):
-        slot_attention_hopper(q[:, :8].float(), q.float(), q.float())
+        slot_attention_hopper(q[:, :8].float(), q, q)
+    with pytest.raises(TypeError, match="bfloat16"):
+        slot_attention_hopper(q[:, :8].half(), q.half(), q.half())
 
 
 @pytest.mark.cuda

@@ -199,12 +199,16 @@ def test_unported_configuration_raises():
     for bad in (dataclasses.replace(cfg, compute_dtype="float16"),
                 dataclasses.replace(cfg, backbone="swin"),
                 dataclasses.replace(cfg, pos_embedding="learned"),
-                # the slot-attention kernel takes bf16 only
+                dataclasses.replace(cfg, resnet=dataclasses.replace(
+                    cfg.resnet, r52_stem=True)),
+                # no such Retriever route
                 dataclasses.replace(cfg, slot_head=dataclasses.replace(
-                    cfg.slot_head, retriever_impl="pallas"))):
+                    cfg.slot_head, retriever_impl="cuda"))):
         with pytest.raises(NotImplementedError):
             tdet.check_supported(bad)
-    # the tuned stack's dtype and Retriever route are ported
-    tdet.check_supported(dataclasses.replace(
-        cfg, compute_dtype="bfloat16", slot_head=dataclasses.replace(
-            cfg.slot_head, retriever_impl="pallas")))
+    # the tuned stack's dtype and the kernel's Retriever route, which takes
+    # bf16 and f32, are ported
+    for dtype in ("bfloat16", "float32"):
+        tdet.check_supported(dataclasses.replace(
+            cfg, compute_dtype=dtype, slot_head=dataclasses.replace(
+                cfg.slot_head, retriever_impl="pallas")))
