@@ -12,8 +12,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      slotvps_tpu_torch/csrc/ (one nvcc each, started together); one line
      per wgmma kernel (the DCN forward and the DCN backward's data and dW
      passes in bf16 and in f32, slot attention's pass 1) and per instance
-     of the f32 slot-attention kernel (slot_attn_f32_kernel, 64 and 128
-     slots) with its registers, dynamic shared memory and spills from
+     of the f32 slot-attention kernel (slot_attn_f32_kernel, 64, 104 and
+     128 slots) with its registers, dynamic shared memory and spills from
      ptxas; each DCN
      kernel's shared memory as the wrapper states it against the
      library's; the same lines for the two persistent claim kernels
@@ -27,9 +27,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      K = 64 and K = 100 slots of 256x512 low-res masks, with small segments
      so that repair has dirty tiles; sseg on [256, 512, 19] quarter-res
      logits with ties; slot attention at the decoder's four pixel counts,
-     in bf16 and in f32 (the f32 kernel also at L = 1, 64, 65, 128 and
-     P = 1, 64, 777, 4133); argmax with its runner-up map (top2) and hist
-     at K = 64.
+     in bf16 and in f32 (the f32 kernel also at L = 1, 64, 65, 104, 105,
+     128 and P = 1, 64, 777, 4133); argmax with its runner-up map (top2)
+     and hist at K = 64.
      The claim loops' edge cases (claim_cases): more than 32 valid things,
      K = 127, all-0 and all-1 planes, B = 2 with different numbers of
      valid things, and batches past the shared-memory geometry (the owner
@@ -165,14 +165,19 @@ DCN_F32_OUT_RTOL = 1e-3
 # slot attention (f32 out): f32 sums over 256 channels and over the pixels
 # in another order
 SA_RTOL = 1e-4
-# the f32 kernel: exact f32 FMA, the sums in another order than the plain
-# version's; both lie ~2e-6 of max|ref| from float64 at L = 100, P <=
-# 131072 (measured on the H100)
+# the f32 kernel: each product as three TF32 products (~2**-21 of a
+# product), the tensor cores' truncating sums restarted every 64 channels
+# and every 4 tiles, the sums in another order than the plain version's;
+# the plain version lies ~2e-6 of max|ref| from float64 at L = 100, P <=
+# 131072 (measured on the H100), the kernel's CPU emulation ~3e-6 from the
+# plain version (tests/test_torch_sa_f32_split.py)
 SA_F32_RTOL = 1e-5
 # (L, P) edge cases of the f32 kernel: one slot, a full 128 slots, the
-# 64-slot instance's largest L and the 128-slot one's smallest, one pixel,
-# pixel counts that end inside a 64-pixel tile
-SA_EDGE_CASES = ((1, 4133), (128, 4133), (64, 777), (65, 64), (100, 1))
+# largest L of the 64- and 104-slot instances and the smallest of the
+# 104- and 128-slot ones, one pixel, pixel counts that end inside a
+# 64-pixel tile
+SA_EDGE_CASES = ((1, 4133), (128, 4133), (64, 777), (65, 64), (100, 1),
+                 (104, 777), (105, 4133))
 # (pixels, calls per frame) of the slot-attention kernel: stage 0 on the
 # 32x64 level, two stages on each finer level, both frames of the pair
 SA_PIXELS = ((2048, 2), (8192, 4), (32768, 4), (131072, 4))
@@ -462,10 +467,10 @@ def wgmma_kernel_resources(*libs):
 
 
 def sa_f32_kernel_resources():
-    """Registers, spills and dynamic shared memory of the two instances of
-    the f32 slot-attention kernel (64 and 128 padded slots), from ptxas;
-    the wrapper's statement of their shared memory (f32_smem, tested on the
-    CPU) against the library's."""
+    """Registers, spills and dynamic shared memory of the three instances of
+    the f32 slot-attention kernel (64, 104 and 128 padded slots), from
+    ptxas; the wrapper's statement of their shared memory (f32_smem, tested
+    on the CPU) against the library's."""
     from slotvps_tpu_torch.ops.cuda import slot_attention as sa
 
     lib = sa.LIBRARY.load()
@@ -483,9 +488,10 @@ def sa_f32_kernel_resources():
                                      f"{nq} slots: library "
                                      f"{rows[-1]['dynamic_smem_bytes']}, "
                                      f"wrapper {sa.f32_smem(nq)}")
-    if len(rows) != 2:
+    if len(rows) != 3:
         raise AssertionError(f"ptxas reported {len(rows)} f32 slot-attention "
-                             "kernel instances, not 2 (64 and 128 slots)")
+                             "kernel instances, not 3 (64, 104 and 128 "
+                             "slots)")
     return rows
 
 
@@ -992,8 +998,9 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
                          timed=True, dtype=torch.bfloat16,
                          edge_cases=SA_EDGE_CASES):
     """Slot-attention kernel vs plain at the decoder's pixel counts, q [1, L,
-    256], k and v [1, P, 256] in ``dtype`` (bf16: the tensor-core kernel,
-    f32: the FMA kernel), then (untimed) ``edge_cases`` (L, P) in f32.
+    256], k and v [1, P, 256] in ``dtype`` (bf16: the bf16 tensor-core
+    kernel, f32: the split-TF32 one), then (untimed) ``edge_cases`` (L, P)
+    in f32.
     Returns the per-frame row (each shape weighted by its calls per
     frame)."""
     from slotvps_tpu_torch.ops.cuda.slot_attention import (
@@ -1004,7 +1011,7 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
     rtol = SA_F32_RTOL if f32 else SA_RTOL
     name = "slot_attention_hopper" + ("_f32" if f32 else "")
     total = dict(kernel=name, max_abs_err=0.0, bytes=0, ops=0, ops_bf16=0,
-                 ms=0.0, plain_ms=0.0)
+                 ops_tf32=0, ms=0.0, plain_ms=0.0)
     cases = [(n_slots, n_pix, calls) for n_pix, calls in pixels]
     if f32:
         cases += [(slots, n_pix, 0) for slots, n_pix in edge_cases]
@@ -1022,17 +1029,19 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
         scale = float(ref.abs().max())
         esz = 4 if f32 else 2
         # q, k, v read once, out written once; 2 flops per (slot, pixel,
-        # channel) in each product: bf16, on the tensor cores (bf16 in, f32
-        # sums): q.k, and p.v as three exact bf16 parts of the f32 p (the
-        # kernel's work, csrc/slot_attention.cu); f32, q.k and p.v as f32
-        # FMA; the softmax ~5 f32 per (slot, pixel)
+        # channel) in each product, on the tensor cores as the kernel runs
+        # them (csrc/slot_attention.cu): bf16, q.k and p.v as three exact
+        # bf16 parts of the f32 p (bf16 in, f32 sums); f32, q.k and p.v as
+        # TF32_PASSES TF32 products each (the split-TF32 product; the f32
+        # FMA bound beside it); the softmax ~5 f32 per (slot, pixel)
         n_bytes = esz * (slots + 2 * n_pix) * 256 + 4 * slots * 256
         n_ops_bf16 = 0 if f32 else 4 * 2 * slots * 256 * n_pix
-        n_ops = (4 * slots * 256 * n_pix if f32 else 0) + 5 * slots * n_pix
+        n_ops_tf32 = TF32_PASSES * 4 * slots * 256 * n_pix if f32 else 0
+        n_ops = 5 * slots * n_pix
         row = dict(L=slots, P=n_pix, dtype=str(dtype).split(".")[-1],
                    calls_per_frame=calls, max_abs_err=err,
                    max_abs_ref=scale, bytes=n_bytes, ops=n_ops,
-                   ops_bf16=n_ops_bf16)
+                   ops_bf16=n_ops_bf16, ops_tf32=n_ops_tf32)
         if timed and calls:
             row["ms"] = _cuda_ms(lambda: slot_attention_hopper(q, k, v))
             row["plain_ms"] = _cuda_ms(lambda: slot_attention(q, k, v))
@@ -1050,10 +1059,14 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
         total["bytes"] += calls * n_bytes
         total["ops"] += calls * n_ops
         total["ops_bf16"] += calls * n_ops_bf16
-    total["bound_ms"], total["bound_by"] = bound(
-        total["bytes"], total["ops"], n_ops_bf16=total["ops_bf16"])
-    total["bound_parts_ms"] = bound_parts(
-        total["bytes"], total["ops"], n_ops_bf16=total["ops_bf16"])
+        total["ops_tf32"] += calls * n_ops_tf32
+    work = (total["bytes"], total["ops"], F32_FLOPS, total["ops_bf16"],
+            total["ops_tf32"])
+    total["bound_ms"], total["bound_by"] = bound(*work)
+    total["bound_parts_ms"] = bound_parts(*work)
+    if f32:
+        total["bound_fma_ms"] = bound(
+            total["bytes"], total["ops"] + total["ops_tf32"] // TF32_PASSES)[0]
     log("kernels", json.dumps(total))
     return total
 
@@ -2894,6 +2907,8 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_rows, serving_rows,
             bound_ms=sa_row["bound_ms"], bound_by=sa_row["bound_by"],
             bound_parts_ms=sa_row["bound_parts_ms"],
             build_s=build_s["slot_attention"]))
+        if "bound_fma_ms" in sa_row:   # f32: the FMA bound beside it
+            rows[-1]["bound_fma_ms"] = sa_row["bound_fma_ms"]
     for name, row in serving_rows.items():
         lib = "claim_scan" if name == "claim_scan_hopper" else "postproc_v3"
         rows.append(dict(

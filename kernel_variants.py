@@ -11,6 +11,7 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 kernel_variants.py dcn_backward_f32
     python3 kernel_variants.py claim_scan
     python3 kernel_variants.py claim
+    python3 kernel_variants.py theta
 
 Each variant is ``slotvps_tpu_torch/csrc/<kernel>.cu`` with a few text
 replacements (VARIANTS below; a replacement of three strings edits the
@@ -27,11 +28,13 @@ the persistent claim scan on binarized planes of a 1024x2048 map (K =
 postprocess does) in the K-minor layout and contiguous; ``claim`` the
 theta claim at K = 64 on 256x512 low-res masks (30 valid things), slot-
 major and K-minor; each variant also at chunks of 16 ("<variant>_chunk16",
-by the geometry, not the source).  One JSON line per (shape, variant):
+by the geometry, not the source).  ``theta`` runs theta on 256x512
+low-res masks at K = 64 with 40 valid slots (slot-major) and at K = 100
+with every slot valid (K-minor).  One JSON line per (shape, variant):
 CUDA-event ms (mean of 20 calls after 3; 10 after 2 for the backward)
 and the error relative to the plain version (the backward: of dx, doff
 and dW each; the claim loops: the entries of keep and owner that
-differ).  The variants that skip work give wrong results on purpose:
+differ; theta: relative to max(1, |theta|)).  The variants that skip work give wrong results on purpose:
 they tell where the time goes.
 """
 
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -65,7 +69,7 @@ SLOTS = 100
 # (H, W, Cin, Cout, halo) of the DCN cases
 DCN_SHAPES = ((256, 512, 256, 256, 2), (64, 128, 256, 256, 4),
               (32, 64, 256, 256, 6))
-# the three products of a k8 step in csrc/deform_conv.cu's mma3 (the f32
+# the three products of a k8 step in csrc/hopper.cuh's mma3 (the f32
 # kernels' split-TF32 product)
 _MMA3 = ("  wgmma_tf32<N>(d, ah, desc128(bh, 16, 1024), scale_d);\n"
          "  wgmma_tf32<N>(d, ah, desc128(bl, 16, 1024), 1);\n"
@@ -95,14 +99,49 @@ VARIANTS = {"slot_attention": {
                          "          wgmma<CHH")],
 }, "slot_attention_f32": {
     "as_is": [],
-    # the k and v tiles are not copied (stale shared memory is used)
-    "no_loads": [("    cp_async16(&dst[swz4(r, f)],",
-                  "    if (P < 0) cp_async16(&dst[swz4(r, f)],")],
-    "no_scores": [("    for (int f = 0; f < CH / 4; ++f) {\n      float4 kv[4];",
-                   "    for (int f = 0; f < 0; ++f) {\n      float4 kv[4];")],
-    "no_exp": [("expf(S[a][j] - mx)", "(S[a][j] - mx)")],
-    "no_pv": [("    for (int px = 0; px < TP; ++px) {",
-               "    for (int px = 0; px < 0; ++px) {")],
+    # q's chunks are not copied (stale shared memory is used)
+    "no_q_copy": [("    mbar_arrive_expect_tx(&full[s], Sm::stage);\n"
+                   "    bulk_load(sm + s * Sm::stage,\n"
+                   "              qimg + ((size_t)b * F_NCH + c) * "
+                   "(Sm::q_bytes / 4), Sm::q_bytes,\n"
+                   "              &full[s]);",
+                   "    mbar_arrive_expect_tx(&full[s], Sm::stage - "
+                   "Sm::q_bytes);")],
+    "no_qk": [("        mma3<NW>(sc, ah[st], al[st],",
+               "        if (st < 0) mma3<NW>(sc, ah[st], al[st],")],
+    "no_pv": [("          mma3<NQ>(o[mb], vh[buf][k][mb],",
+               "          if (st < 0) mma3<NQ>(o[mb], vh[buf][k][mb],")],
+    # both products as one TF32 pass (hi . hi)
+    "one_pass": [("hopper.cuh", _MMA3, _MMA3.split("\n")[0] + "\n")],
+    "no_exp": [("expf(s_sum[r] - mx)", "(s_sum[r] - mx)")],
+    # the scores' A fragments: not split (raw bits as hi, lo = 0)
+    "no_k_split": [("        split_frag(v, ah[st], al[st]);",
+                    "        for (int j = 0; j < 4; ++j) {\n"
+                    "          ah[st][j] = __float_as_uint(v[j]);\n"
+                    "          al[st][j] = 0u;\n        }")],
+    # the scores' A fragments: neither loaded nor split
+    "no_k_frags": [("        split_frag(v, ah[st], al[st]);",
+                    "        for (int j = 0; j < 4; ++j) {\n"
+                    "          ah[st][j] = st + j;\n"
+                    "          al[st][j] = 0u;\n        }")],
+    "no_v_split": [("          split_frag(v, vh[buf][k][mb], vl[buf][k][mb]);",
+                    "          for (int j = 0; j < 4; ++j) {\n"
+                    "            vh[buf][k][mb][j] = __float_as_uint(v[j]);\n"
+                    "            vl[buf][k][mb][j] = 0u;\n          }")],
+    # p.v's pieces are not flushed to the partial sums
+    "no_flush": [("    if ((i + 1) % F_PV_FLUSH == 0 || i + 1 == n_my) {",
+                  "    if (L < 0) {")],
+    # p.v restarted (and flushed) every 8 tiles, or every tile
+    "flush_8": [("constexpr int F_PV_FLUSH = 4;", "constexpr int F_PV_FLUSH = 8;")],
+    "flush_1": [("constexpr int F_PV_FLUSH = 4;", "constexpr int F_PV_FLUSH = 1;")],
+    # a ring of two chunks at NQ = 104
+    "ring_2": [("NQ == 104 ? 3 : 2;", "NQ == 104 ? 2 : 2;")],
+    # p's parts are not written (its split is dead code)
+    "no_p_store": [("          *reinterpret_cast<uint32_t*>(s_p + off) = hi;\n"
+                    "          *reinterpret_cast<uint32_t*>(s_p + Sm::p_part + "
+                    "off) = lo;", "")],
+    # the warpgroups do not wait for each other (wrong results)
+    "no_named_sync": [("named_sync(1, F_CONS);", "")],
 }, "deform_conv": {
     "as_is": [],
     # the weight chunk is not copied (the ring's stale bytes are used)
@@ -188,11 +227,11 @@ VARIANTS = {"slot_attention": {
                          "if (c < 0) un[i][j] = load4(x + (img + "
                          "tp[i].idx[j])")],
     # no products: the three TF32 wgmma of each k8 step skipped
-    "no_products": [(_MMA3, _MMA3.replace("  wgmma_tf32<N>(",
+    "no_products": [("hopper.cuh", _MMA3, _MMA3.replace("  wgmma_tf32<N>(",
                                           "  if (scale_d < -1) "
                                           "wgmma_tf32<N>("))],
     # one TF32 pass (Ahi.Bhi) instead of three: the split's cost
-    "one_pass": [(_MMA3, _MMA3.split("\n")[0] + "\n")],
+    "one_pass": [("hopper.cuh", _MMA3, _MMA3.split("\n")[0] + "\n")],
     # the accumulators restarted every 8 chunks (a tap at Cin 256) or
     # every 9 * Cin (never), 1 as is: accuracy against the sums' cost
     "flush_8": [("constexpr int TF_FLUSH = 1;", "constexpr int TF_FLUSH = 8;")],
@@ -218,10 +257,10 @@ VARIANTS = {"slot_attention": {
                     "  if (nc < 0) err = nc == 64 ? launch_dw_f32")],
     "no_g_split": [("  dcn_gsplit_kernel<<<", "  if (HW < 0) "
                     "dcn_gsplit_kernel<<<")],
-    "no_products": [(_MMA3, _MMA3.replace("  wgmma_tf32<N>(",
+    "no_products": [("hopper.cuh", _MMA3, _MMA3.replace("  wgmma_tf32<N>(",
                                           "  if (scale_d < -1) "
                                           "wgmma_tf32<N>("))],
-    "one_pass": [(_MMA3, _MMA3.split("\n")[0] + "\n")],
+    "one_pass": [("hopper.cuh", _MMA3, _MMA3.split("\n")[0] + "\n")],
     # data pass: no x loads for the corner sums, no ds stores
     "data_no_corner_loads": [("            if (idx[j] >= 0 && c + 4 * h < "
                               "Cin)\n              v = load4(",
@@ -259,12 +298,30 @@ VARIANTS = {"slot_attention": {
          "    if (st < 0) claim_and_count(a, s, t > 0 ? t - 1 : -1, st, t);")],
 }}
 VARIANTS["claim"] = VARIANTS["claim_scan"]
+VARIANTS["theta"] = {
+    "as_is": [],
+    # nothing staged (the valid list is still built; stale shared memory is
+    # used)
+    "no_staging": [("  if (n_chunks > 0) {\n    load(0, min(TH_CH, n_valid));\n"
+                    "    store(0, min(TH_CH, n_valid));\n  }\n", ""),
+                   ("    if (nc_next > 0) load(", "    if (nc_next < 0) load("),
+                   ("    if (nc_next > 0) store(",
+                    "    if (nc_next < 0) store(")],
+    # staging alone: no thread takes the pass over the slots
+    "staging_only": [("    if (inside) {\n#pragma unroll 4",
+                      "    if (inside && K < 0) {\n#pragma unroll 4")],
+    "no_exp": [("const float e = expf(-fabsf(d));",
+                "const float e = -fabsf(d);")],
+    # one low-res row a block (128 threads), chunks of 8 valid slots
+    "one_row": [("constexpr int TH_RB = 2;", "constexpr int TH_RB = 1;")],
+    "chunk8": [("constexpr int TH_CH = 16;", "constexpr int TH_CH = 8;")],
+}
 # kernel variants -> the library whose entry points they load
 SOURCE = {"slot_attention": "slot_attention",
           "slot_attention_f32": "slot_attention", "deform_conv": "deform_conv",
           "dcn_backward": "deform_conv", "dcn_f32": "deform_conv",
           "dcn_backward_f32": "deform_conv", "claim_scan": "claim_scan",
-          "claim": "postproc_v3"}
+          "claim": "postproc_v3", "theta": "postproc_v3"}
 # (B, H, W, Cin, Cout, halo) of the backward's cases: P2 and P4 of the
 # 800x1600 training crop (the reference and the current frame)
 BWD_SHAPES = ((2, 200, 400, 256, 256, 2), (2, 50, 100, 256, 256, 4))
@@ -332,7 +389,10 @@ def run_slot_attention(libs, dev, stream, dtype=torch.bfloat16):
         grid = sa.sa_f32_grid if dtype == torch.float32 else sa.sa_grid
         n_runs = grid(1, n_pix, _sms(dev))[0]
         out = torch.empty((1, SLOTS, 256), device=dev)
-        part = torch.empty((1, n_runs, SLOTS, 256), device=dev)
+        part = torch.empty(
+            (sa.f32_scratch_floats(1, SLOTS, n_runs)
+             if dtype == torch.float32 else n_runs * SLOTS * 256,),
+            device=dev)
         for name, lib in libs.items():
             def run(lib=lib):
                 rc = getattr(lib, entry)(
@@ -570,6 +630,33 @@ def run_claim(libs, dev, stream):
         _claim_run(libs, entry, args, geo, stream, (owner, keep), ref, case)
 
 
+def run_theta(libs, dev, stream):
+    """theta at K = 64 with 40 valid slots on 256x512 slot-major masks (the
+    postprocess kernel phase's case) and at 256x512x100 K-minor masks,
+    every slot valid (the K-minor chain's)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    for case, entry, k, n_valid in (("slot_major", "pp_theta", 64, 40),
+                                    ("k_minor", "pp_theta_hwk", 100, 100)):
+        m = torch.randn((k, 256, 512), generator=g, device=dev) * 4
+        valid = torch.arange(k, device=dev) < n_valid
+        ref = tv3.theta(m, valid, 0.4)
+        mm = m if entry == "pp_theta" else m.permute(1, 2, 0).contiguous()
+        valid8 = valid.to(torch.uint8)
+        out = torch.empty_like(ref)
+        for name, lib in libs.items():
+            def run(lib=lib):
+                rc = getattr(lib, entry)(mm.data_ptr(), valid8.data_ptr(),
+                                         math.log(0.4), out.data_ptr(), k,
+                                         256, 512, stream)
+                if rc:
+                    raise RuntimeError(lib.pp_error_string(rc).decode())
+            ms = _ms(run)
+            rel = float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max())
+            print(json.dumps({"case": case, "K": k, "valid": n_valid,
+                              "variant": name, "ms": ms, "rel_err": rel}),
+                  flush=True)
+
+
 def main():
     kernel = sys.argv[1] if len(sys.argv) > 1 else "slot_attention"
     if kernel not in VARIANTS:
@@ -579,14 +666,15 @@ def main():
     setup_precision()
     dev = torch.device("cuda")
     mod = {"slot_attention": sa, "slot_attention_f32": sa,
-           "claim_scan": cs, "claim": pv3}.get(kernel, dc)
+           "claim_scan": cs, "claim": pv3, "theta": pv3}.get(kernel, dc)
     run = {"slot_attention": run_slot_attention,
            "slot_attention_f32": lambda libs, dev, stream: run_slot_attention(
                libs, dev, stream, torch.float32),
            "deform_conv": run_deform_conv,
            "dcn_backward": run_dcn_backward, "dcn_f32": run_dcn_f32,
            "dcn_backward_f32": run_dcn_backward_f32,
-           "claim_scan": run_claim_scan, "claim": run_claim}[kernel]
+           "claim_scan": run_claim_scan, "claim": run_claim,
+           "theta": run_theta}[kernel]
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), kernel, mod._declare)
         run(libs, dev, torch.cuda.current_stream().cuda_stream)

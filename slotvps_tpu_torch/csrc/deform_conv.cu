@@ -794,31 +794,6 @@ __device__ __forceinline__ float4 corner_samples_f32(const float4 (&u)[4],
   return v;
 }
 
-// the TF32 parts of one A fragment (hopper.cuh's register layout) from its
-// four f32 values
-__device__ __forceinline__ void split_frag(const float (&v)[4],
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) hopper::split_tf32(v[i], hi[i], lo[i]);
-}
-
-// One k8 step of the split-TF32 product, D (+)= A.B as Ahi.Bhi + Ahi.Blo +
-// Alo.Bhi (Alo.Blo is below the f32 rounding of the sum), in that order:
-// A's parts in registers, B's at bh / bl (the step's 32 bytes into the hi
-// and lo tiles).  scale_d = 0 overwrites D with the first product.
-template <int N>
-__device__ __forceinline__ void mma3(float (&d)[N / 2],
-                                     const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const unsigned char* bh,
-                                     const unsigned char* bl, int scale_d) {
-  using namespace hopper;
-  wgmma_tf32<N>(d, ah, desc128(bh, 16, 1024), scale_d);
-  wgmma_tf32<N>(d, ah, desc128(bl, 16, 1024), 1);
-  wgmma_tf32<N>(d, al, desc128(bh, 16, 1024), 1);
-}
-
 // The f32 forward.  Block = one tile_h x tile_w pixel tile (<= FM pixels)
 // of one image and NC output channels (tile ctile), chunks of one tap x 32
 // input channels through an S-stage ring: the producer warps' A tile (f32

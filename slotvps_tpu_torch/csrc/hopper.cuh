@@ -2,8 +2,9 @@
 // slot_attention.cu): mbarriers, bulk and tensor copies (the TMA unit) and
 // the driver's tensor-map encoder, the proxy fence, wgmma's shared-memory
 // descriptors, its m64nNk16 bf16 products and its m64nNk8 TF32 products
-// (A from registers) with f32 accumulators, and the split of an f32 into
-// two TF32 parts.  PTX for sm_90a; nothing here allocates or launches.
+// (A from registers) with f32 accumulators, the split of an f32 into two
+// TF32 parts and the three-pass split-TF32 product (mma3).  PTX for
+// sm_90a; nothing here allocates or launches.
 //
 // Shared-memory operand layout (the one all the kernels use): a tile is a
 // stack of 128-byte rows, each row 64 bf16 of the 16-byte-chunked dimension
@@ -332,6 +333,15 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
   lo = to_tf32(a - __uint_as_float(hi));
 }
 
+// the TF32 parts of one A fragment (the register layout below) from its
+// four f32 values
+__device__ __forceinline__ void split_frag(const float (&v)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
+}
+
 // keeps the compiler from moving a register operand of an async wgmma
 // (read until its wgmma_wait) past the wait
 template <int R>
@@ -403,15 +413,135 @@ __device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_tf32_m64n32k8(float (&d)[16],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n48k8(float (&d)[24],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n56k8(float (&d)[28],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n104k8(float (&d)[52],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128, "TF32 widths: 64, 128");
-  if constexpr (N == 64)
+  static_assert(N == 32 || N == 48 || N == 56 || N == 64 || N == 104 ||
+                    N == 128,
+                "TF32 widths: 32, 48, 56, 64, 104, 128");
+  if constexpr (N == 32)
+    wgmma_tf32_m64n32k8(d, a, db, scale_d);
+  else if constexpr (N == 48)
+    wgmma_tf32_m64n48k8(d, a, db, scale_d);
+  else if constexpr (N == 56)
+    wgmma_tf32_m64n56k8(d, a, db, scale_d);
+  else if constexpr (N == 64)
     wgmma_tf32_m64n64k8(d, a, db, scale_d);
+  else if constexpr (N == 104)
+    wgmma_tf32_m64n104k8(d, a, db, scale_d);
   else
     wgmma_tf32_m64n128k8(d, a, db, scale_d);
+}
+
+// One k8 step of the split-TF32 product, D (+)= A.B as Ahi.Bhi + Ahi.Blo +
+// Alo.Bhi (Alo.Blo is below the f32 rounding of the sum), in that order:
+// A's parts in registers, B's at bh / bl (the step's 32 bytes into the hi
+// and lo tiles, K-major, 128-byte rows).  scale_d = 0 overwrites D with
+// the first product.
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N / 2],
+                                     const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const unsigned char* bh,
+                                     const unsigned char* bl, int scale_d) {
+  wgmma_tf32<N>(d, ah, desc128(bh, 16, 1024), scale_d);
+  wgmma_tf32<N>(d, ah, desc128(bl, 16, 1024), 1);
+  wgmma_tf32<N>(d, al, desc128(bh, 16, 1024), 1);
 }
 
 }  // namespace hopper

@@ -31,11 +31,17 @@
 // of HBM, 67 TFLOP/s of f32 outside the tensor cores), at K = 64,
 // h x w = 256 x 512 (a 1024x2048 frame); chip_smoke.py computes each bound
 // from its run's data:
-//   theta  reads the masks once (K*h*w*4 B = 33.6 MB) and writes theta
-//          (8.4 MB): ~13 us of bytes at 3.35 TB/s.  Its arithmetic is
-//          ~2M pixels x K slots x (3 flops + 1 expf) and is the larger
-//          bound; staging the row-interpolated values of K slots in shared
-//          memory leaves 3 flops per (pixel, slot) for the column phase.
+//   theta  reads the valid slots' masks once (40 of 64: 21 MB) and writes
+//          theta (8.4 MB): ~9 us of bytes at 3.35 TB/s.  Its arithmetic is
+//          ~2M pixels x valid slots x (3 flops + 1 expf) and is the larger
+//          bound; staging the row-interpolated values of the valid slots in
+//          shared memory leaves 3 flops per (pixel, slot) for the column
+//          phase, one pass with a running max.  At K = 64, 40 valid
+//          (kernel_variants.py theta, H100 at 700 W) it takes 0.069 ms,
+//          issue-bound in that pass (expf ~0.023 of it; staging alone
+//          0.024, ~0.011 of it exposed); the earlier kernel (a block a
+//          low-res row, all K slots staged, two passes) took 0.20 ms: the
+//          max pass 0.07, expf 0.03, exposed staging 0.02.
 //   claim  is sequential over the valid thing slots: slot i's keep decision
 //          needs whole-map counts taken after every earlier claim.  One
 //          persistent cooperative launch a call (claim_loop.cuh): a block
@@ -113,7 +119,7 @@ __device__ __forceinline__ float lerp_phase(int p, float prev, float cent,
   return mix(phase_wx(p), p < 2 ? prev : next, phase_wc(p), cent);
 }
 
-// Shared-memory layout of the staged kernels (theta, argmax/repair).
+// Shared-memory layout of the staged kernels (argmax/repair).
 __host__ __device__ inline size_t staged_smem_bytes(int K) {
   return sizeof(float) * (size_t)K * 4 * SC   // R[K][4][SC]
          + sizeof(int) * (size_t)K            // per-block histogram
@@ -176,41 +182,141 @@ __device__ __forceinline__ float staged_value(const float* R, int k, int pr,
   return mix(cp.wx, r[cp.xo], cp.wc, r[1]);
 }
 
-__global__ void __launch_bounds__(NT)
+// theta: a block owns TH_RB low-res rows x TH_CW low-res columns, a thread
+// one (row phase, row, low-res column): the four full-res pixels of that
+// column's phases.  The block lists the valid slots in slot order (a
+// ballot over valid[], no host sync) and stages them TH_CH at a time: one
+// read of rows i0-1 .. i0+TH_RB (the block's rows share their prev and
+// next rows) into registers, the row phases of each block row into shared
+// memory; the next chunk's reads are issued before the current chunk is
+// taken, so they land during its arithmetic.  Each thread reads three
+// staged values a slot (its column and both neighbours), forms the four
+// column phases with the plain version's arithmetic and folds each into a
+// running max and sum of exp in one pass: z = z * exp(mx - v) + 1 where v
+// is a new max, else z + exp(v - mx), one expf a (pixel, slot).
+constexpr int TH_CW = 32;                    // low-res columns a block
+constexpr int TH_RB = 2;                     // low-res rows a block
+constexpr int TH_THREADS = 4 * TH_RB * TH_CW;
+constexpr int TH_CH = 16;                    // valid slots staged at a time
+constexpr int TH_SC = TH_CW + 2;             // staged columns, both halos
+constexpr int TH_UNITS = (TH_CH * TH_SC + TH_THREADS - 1) / TH_THREADS;
+
+__global__ void __launch_bounds__(TH_THREADS, 4)
 theta_kernel(const float* __restrict__ m, Layout L,
              const uint8_t* __restrict__ valid, float log_thr,
              float* __restrict__ out, int K, int h, int w) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* R = reinterpret_cast<float*>(smem);
-  uint8_t* s_valid =
-      reinterpret_cast<uint8_t*>(R + (size_t)K * 4 * SC) + sizeof(int) * K;
-  const int i = blockIdx.y;
-  const int j0 = blockIdx.x * SW;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) s_valid[k] = valid[k];
-  stage_rows(m, K, h, w, L, i, j0, R);
-  __syncthreads();
+  // R[buf][slot of the chunk][block row][row phase][staged column]
+  __shared__ float R[2][TH_CH][TH_RB][4][TH_SC];
+  __shared__ uint8_t s_list[128];
+  __shared__ int s_cnt[TH_THREADS / 32];
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.y * TH_RB;
+  const int j0 = blockIdx.x * TH_CW;
 
-  const int pr = threadIdx.x / FW;
-  const int xl = threadIdx.x % FW;
-  const int jl = xl >> 2;
-  const ColPhase cp(xl & 3);
-  if (j0 + jl >= w) return;
-  float mx = -INFINITY;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float v = s_valid[k] ? staged_value(R, k, pr, jl, cp) : NEG;
-    mx = fmaxf(mx, v);
+  // the valid slots in slot order
+  const bool f = tid < K && valid[tid];
+  const unsigned bal = __ballot_sync(0xffffffffu, f);
+  if ((tid & 31) == 0) s_cnt[tid >> 5] = __popc(bal);
+  __syncthreads();
+  int n_valid = 0, pos = __popc(bal & ((1u << (tid & 31)) - 1));
+  for (int wi = 0; wi < TH_THREADS / 32; ++wi) {
+    if (wi < (tid >> 5)) pos += s_cnt[wi];
+    n_valid += s_cnt[wi];
   }
-  // invalid slots add exp(-1e30 - mx) = 0 (or, with no valid slot at all,
-  // leave theta at -1e30 whatever z is): skip them
-  float z = 0.f;
+  if (f) s_list[pos] = (uint8_t)tid;
+
+  // low-res rows i0-1 .. i0+TH_RB, clamped
+  size_t rows[TH_RB + 2];
+#pragma unroll
+  for (int a = 0; a < TH_RB + 2; ++a)
+    rows[a] = (size_t)min(max(i0 - 1 + a, 0), h - 1) * L.sr;
+  const bool slots_inner = L.sk == 1;
+  float raw[TH_UNITS][TH_RB + 2];
+  // the raw rows of staging unit (slot t of the chunk at c0, column c):
+  // neighbouring threads on neighbouring columns of slot-major masks, on
+  // neighbouring slots of K-minor ones
+  auto load = [&](int c0, int nc) {
+#pragma unroll
+    for (int u = 0; u < TH_UNITS; ++u) {
+      const int e = tid + u * TH_THREADS;
+      if (e >= nc * TH_SC) continue;
+      const int t = slots_inner ? e % nc : e / TH_SC;
+      const int c = slots_inner ? e / nc : e % TH_SC;
+      const int jj = min(max(j0 - 1 + c, 0), w - 1);
+      const float* mk =
+          m + (size_t)s_list[c0 + t] * L.sk + (size_t)jj * L.sc;
+#pragma unroll
+      for (int a = 0; a < TH_RB + 2; ++a) raw[u][a] = mk[rows[a]];
+    }
+  };
+  auto store = [&](int buf, int nc) {
+#pragma unroll
+    for (int u = 0; u < TH_UNITS; ++u) {
+      const int e = tid + u * TH_THREADS;
+      if (e >= nc * TH_SC) continue;
+      const int t = slots_inner ? e % nc : e / TH_SC;
+      const int c = slots_inner ? e / nc : e % TH_SC;
+#pragma unroll
+      for (int r = 0; r < TH_RB; ++r)
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          R[buf][t][r][p][c] =
+              lerp_phase(p, raw[u][r], raw[u][r + 1], raw[u][r + 2]);
+    }
+  };
+
+  const int jl = tid % TH_CW;
+  const int pr = (tid / TH_CW) & 3;
+  const int r = tid / (4 * TH_CW);
+  const bool inside = i0 + r < h && j0 + jl < w;
+  const int n_chunks = (n_valid + TH_CH - 1) / TH_CH;
+  float mx[4], z[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    mx[c] = NEG;   // with no valid slot theta stays at about -1e30
+    z[c] = 0.f;
+  }
+  __syncthreads();   // s_list is complete
+  if (n_chunks > 0) {
+    load(0, min(TH_CH, n_valid));
+    store(0, min(TH_CH, n_valid));
+  }
+  __syncthreads();
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int nc = min(TH_CH, n_valid - ch * TH_CH);
+    const int nc_next = min(TH_CH, n_valid - (ch + 1) * TH_CH);
+    if (nc_next > 0) load((ch + 1) * TH_CH, nc_next);
+    if (inside) {
 #pragma unroll 4
-  for (int k = 0; k < K; ++k)
-    if (s_valid[k])
-      z = __fadd_rn(z, expf(__fsub_rn(staged_value(R, k, pr, jl, cp), mx)));
+      for (int t = 0; t < nc; ++t) {
+        const float* x = &R[ch & 1][t][r][pr][jl];
+        const float x0 = x[0], x1 = x[1], x2 = x[2];
+        // the column phases 0..3: mix(wx, prev or next, wc, cent)
+        const float v[4] = {mix(0.375f, x0, 0.625f, x1),
+                            mix(0.125f, x0, 0.875f, x1),
+                            mix(0.125f, x2, 0.875f, x1),
+                            mix(0.375f, x2, 0.625f, x1)};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float d = v[c] - mx[c];
+          const float e = expf(-fabsf(d));
+          z[c] = d > 0.f ? fmaf(z[c], e, 1.f) : z[c] + e;
+          mx[c] = fmaxf(mx[c], v[c]);
+        }
+      }
+    }
+    if (nc_next > 0) store((ch + 1) & 1, nc_next);
+    __syncthreads();
+  }
+  if (!inside) return;
+  float th[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    th[c] = __fadd_rn(__fadd_rn(log_thr, mx[c]), logf(fmaxf(z[c], 1e-30f)));
   const size_t W4 = 4 * (size_t)w;
-  out[(size_t)(4 * i + pr) * W4 + 4 * j0 + xl] =
-      __fadd_rn(__fadd_rn(log_thr, mx), logf(fmaxf(z, 1e-30f)));
+  *reinterpret_cast<float4*>(out + (size_t)(4 * (i0 + r) + pr) * W4 +
+                             4 * (j0 + jl)) =
+      make_float4(th[0], th[1], th[2], th[3]);
 }
 
 // Masked argmax + per-tile areas; with `m2_id` non-null also the runner-up
@@ -487,10 +593,8 @@ cudaError_t set_smem(const void* fn, int K) {
 
 int launch_theta(const void* m, Layout L, const void* valid, float log_thr,
                  void* out, int K, int h, int w, void* stream) {
-  cudaError_t err = set_smem((const void*)theta_kernel, K);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((w + SW - 1) / SW, h);
-  theta_kernel<<<grid, NT, staged_smem_bytes(K), (cudaStream_t)stream>>>(
+  dim3 grid((w + TH_CW - 1) / TH_CW, (h + TH_RB - 1) / TH_RB);
+  theta_kernel<<<grid, TH_THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(m), L, static_cast<const uint8_t*>(valid),
       log_thr, static_cast<float*>(out), K, h, w);
   return (int)cudaGetLastError();

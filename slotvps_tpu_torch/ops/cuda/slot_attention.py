@@ -6,11 +6,11 @@ of its plain version, :func:`slotvps_tpu_torch.ops.slot_attention.
 slot_attention`.  On CPU tensors it runs the plain version; on CUDA tensors
 it launches the kernel or raises — there is no fallback.  Its contract on
 the card: q [B, L, 256] with 1 <= L <= 128, k and v [B, P, 256], all bf16
-(``sa_forward_bf16``, tensor cores) or all f32 (``sa_forward_f32``, f32 FMA
-on the CUDA cores); it returns f32 [B, L, 256].  Other L or C raise: every
-named config has 100 slots and 256 channels (the JAX kernel pads any L and
-C).  The launch geometry is :func:`sa_grid` (bf16) and
-:func:`sa_f32_grid` (f32).
+(``sa_forward_bf16``, tensor cores) or all f32 (``sa_forward_f32``,
+split-TF32 products on the tensor cores); it returns f32 [B, L, 256].
+Other L or C raise: every named config has 100 slots and 256 channels
+(the JAX kernel pads any L and C).  The launch geometry is
+:func:`sa_grid` (bf16) and :func:`sa_f32_grid` (f32).
 """
 
 from __future__ import annotations
@@ -65,12 +65,31 @@ LIBRARY = KernelLibrary("slot_attention", _declare)
 ENTRIES = {torch.bfloat16: "sa_forward_bf16", torch.float32: "sa_forward_f32"}
 
 
-def f32_smem(n_slots: int) -> int:
-    """Dynamic shared memory of the f32 pass 1 (``SaF32Smem``): q padded to
-    NQ = 64 or 128 slots, one 64-pixel tile of k (then of v) and p [64 x
-    NQ], all f32."""
-    nq = 64 if n_slots <= 64 else 128
-    return 4 * ((nq + TILE_PIXELS) * CHANNELS + TILE_PIXELS * nq)
+def f32_slots(n_slots: int) -> int:
+    """The f32 kernel's padded slot count (NQ, a multiple of 8: its
+    instances take L <= 64, <= 104 and <= 128)."""
+    return 64 if n_slots <= 64 else 104 if n_slots <= 104 else 128
+
+
+def f32_smem(nq: int) -> int:
+    """Dynamic shared memory of the f32 pass 1 at NQ padded slots
+    (``SaF32<NQ>``): the ring of q chunks (hi and lo parts of 32 channels,
+    NQ rows) and k chunks (32 channels of a 64-pixel tile), 4, 3 or 2
+    stages at NQ = 64, 104, 128; the v tile (64 pixels x 256 channels);
+    p's two parts [NQ x 64]; the two warpgroups' row max and row sum; the
+    barriers; 1024 bytes of alignment."""
+    stages = {64: 4, 104: 3, 128: 2}[nq]
+    stage = 2 * nq * 32 * 4 + TILE_PIXELS * 32 * 4
+    body = (stages * stage + TILE_PIXELS * CHANNELS * 4
+            + 2 * TILE_PIXELS * nq * 4 + 4 * TILE_PIXELS * 4)
+    return 1024 + body + (2 * stages + 2) * 8
+
+
+def f32_scratch_floats(b: int, n_slots: int, n_runs: int) -> int:
+    """The f32 entry's scratch in floats: the partial sums [B, G, L, 256],
+    then q's split image [B, 8 chunks, hi and lo, NQ, 32]."""
+    return b * n_slots * CHANNELS * n_runs + b * 8 * 2 * f32_slots(
+        n_slots) * 32
 
 
 def slot_attention_hopper(q: torch.Tensor, k: torch.Tensor,
@@ -115,8 +134,9 @@ def slot_attention_hopper(q: torch.Tensor, k: torch.Tensor,
         b, n_pix,
         torch.cuda.get_device_properties(dev).multi_processor_count)[0]
     out = torch.empty((b, n_slots, c), dtype=torch.float32, device=dev)
-    part = torch.empty((b, n_runs, n_slots, c), dtype=torch.float32,
-                       device=dev)
+    n_part = (f32_scratch_floats(b, n_slots, n_runs)
+              if q.dtype == torch.float32 else b * n_runs * n_slots * c)
+    part = torch.empty((n_part,), dtype=torch.float32, device=dev)
     entry = ENTRIES[q.dtype]
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -24,8 +24,11 @@ slot attention's P.V, on the CPU.
   ranges are whole runs, and every f32 kernel fits in a block's shared
   memory for Cin and Cout in {20, 24, 128, 256}; Cin or Cout > 256 is
   refused.
-* ``sa_grid`` (``ops/cuda/slot_attention.py``): the number of pixel runs G
-  is a function of P and the card, not of B.
+* ``sa_grid`` and ``sa_f32_grid`` (``ops/cuda/slot_attention.py``): the
+  number of pixel runs G is a function of P and the card, not of B.  The
+  split-TF32 f32 kernel pads L to a multiple of 8 (``f32_slots``: 64, 104
+  or 128), its shared memory (``f32_smem``) fits a block at each, and its
+  scratch holds the partials and q's split image.
 * The kernel's p.v splits the f32 softmax p into three bf16 parts
   (``csrc/slot_attention.cu``): the parts sum back to p exactly for p in
   [2**-100, 1], and a torch emulation of the kernel's arithmetic (bf16
@@ -46,6 +49,11 @@ from slotvps_tpu_torch.ops.cuda.deform_conv import (
     bwd_dw_f32_smem, bwd_dw_smem, dw_splits, f32_backward_geometry,
     f32_forward_geometry, fwd_f32_smem)
 from slotvps_tpu_torch.ops.cuda.slot_attention import TILE_PIXELS, sa_grid
+from slotvps_tpu_torch.ops.cuda.slot_attention import f32_scratch_floats as \
+    sa_f32_scratch_floats
+from slotvps_tpu_torch.ops.cuda.slot_attention import f32_slots as sa_f32_slots
+from slotvps_tpu_torch.ops.cuda.slot_attention import f32_smem as sa_f32_smem
+from slotvps_tpu_torch.ops.cuda.slot_attention import sa_f32_grid
 
 SMS = 132
 SA_RTOL = 1e-4
@@ -348,3 +356,31 @@ def test_split_p_v_matches_the_reference_and_the_pallas_kernel():
         jax_out = np.asarray(slot_attention_pallas(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), tile=256))
     assert float(np.abs(ours.numpy() - jax_out).max()) <= SA_RTOL * scale
+
+
+@pytest.mark.parametrize("n_slots", [1, 64, 65, 100, 104, 105, 128])
+def test_sa_f32_instance_fits_and_pads_to_a_multiple_of_eight(n_slots):
+    """The f32 kernel's instance for L slots pads them to NQ, a multiple of
+    8 (the smallest of 64, 104, 128 that holds L: L = 100 -> 104, not
+    128), and its shared memory fits a block; the
+    scratch holds the [B, G, L, 256] partials and q's split image [B, 8,
+    2, NQ, 32]."""
+    nq = sa_f32_slots(n_slots)
+    assert nq % 8 == 0
+    assert nq == min(n for n in (64, 104, 128) if n >= n_slots)
+    assert sa_f32_smem(nq) <= MAX_SMEM
+    for b, runs in ((1, 66), (2, 32)):
+        assert sa_f32_scratch_floats(b, n_slots, runs) == \
+            b * runs * n_slots * 256 + b * 8 * 2 * nq * 32
+
+
+@pytest.mark.parametrize("n_pix", [1, 33, 2048, 4133, 8192, 32768, 131072])
+@pytest.mark.parametrize("n_sm", [132, 114, 2])
+def test_sa_f32_runs_depend_on_p_and_the_card_only(n_pix, n_sm):
+    grids = [sa_f32_grid(b, n_pix, n_sm) for b in (1, 2, 3)]
+    assert [gr[2] for gr in grids] == [1, 2, 3]
+    assert len({gr[:2] for gr in grids}) == 1
+    n_runs, blocks_a_run = grids[0][:2]
+    n_tiles = -(-n_pix // TILE_PIXELS)
+    assert blocks_a_run == 1 and 1 <= n_runs <= n_tiles
+    assert n_runs == min(n_tiles, n_sm)

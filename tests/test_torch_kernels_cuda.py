@@ -488,11 +488,14 @@ def test_slot_attention_kernel_matches_plain(cuda_device, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 100, 2048), (2, 100, 4133),
                                    (2, 20, 1000), (1, 128, 33), (1, 1, 64),
-                                   (1, 64, 777), (1, 65, 64), (2, 100, 1)])
+                                   (1, 64, 777), (1, 65, 64), (2, 100, 1),
+                                   (1, 104, 777), (2, 105, 4133),
+                                   (1, 1, 4133), (2, 128, 4133)])
 def test_slot_attention_f32_kernel_matches_plain(cuda_device, shape):
-    """The f32 kernel (f32 q, k and v, exact f32 FMA): within 1e-5 of max
-    of the plain version, one f32 launch a call, equal in two runs, and
-    each batch element's output the bits it gets alone."""
+    """The f32 kernel (f32 q, k and v, split-TF32 products on wgmma; its
+    instances pad L to 64, 104 and 128 slots): within 1e-5 of max of the
+    plain version, one f32 launch a call, equal in two runs, and each
+    batch element's output the bits it gets alone."""
     b, n_slots, n_pix = shape
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q, k, v = (torch.randn(s, generator=g, device=cuda_device)
@@ -647,6 +650,36 @@ def test_postproc_kernels_match_plain(cuda_device, shape):
     torch.cuda.synchronize()
     assert torch.equal(m2, m2_ref) and torch.equal(a2, a2_ref)
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_minor", [False, True])
+@pytest.mark.parametrize("valid_set", ["none", "one", "first40", "all"])
+def test_theta_kernel_on_valid_sets(cuda_device, k_minor, valid_set):
+    """theta over no valid slot, one (slot 5), the first 40 and all 64
+    slots of 41 x 70 masks (ragged blocks in both directions), slot-major
+    and K-minor: within 1e-5 * max(1, |theta|) of the plain version, the
+    two layouts equal bit for bit, one launch each."""
+    k, h, w = 64, 41, 70
+    m, _, _, _ = _postproc_case(cuda_device, k, h, w)
+    valid = torch.zeros((k,), dtype=torch.bool, device=cuda_device)
+    valid[{"none": [], "one": [5], "first40": list(range(40)),
+           "all": list(range(k))}[valid_set]] = True
+    before = (hv3.theta_hopper.launches, hfused.theta_fused_hopper.launches)
+    if k_minor:
+        th = hfused.theta_fused_hopper(m.permute(1, 2, 0).contiguous(),
+                                       valid, 0.4)
+    else:
+        th = hv3.theta_hopper(m, valid, 0.4)
+    other = hv3.theta_hopper(m, valid, 0.4) if k_minor else \
+        hfused.theta_fused_hopper(m.permute(1, 2, 0).contiguous(), valid,
+                                  0.4)
+    ref = plain.theta(m, valid, 0.4)
+    torch.cuda.synchronize()
+    assert float(((th - ref).abs() / ref.abs().clamp_min(1.0)).max()) <= 1e-5
+    assert torch.equal(th, other)
+    assert (hv3.theta_hopper.launches - before[0],
+            hfused.theta_fused_hopper.launches - before[1]) == (1, 1)
 
 
 @pytest.mark.cuda

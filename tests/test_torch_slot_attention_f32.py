@@ -151,10 +151,15 @@ def test_wrapper_f32_needs_the_card():
 
 
 def test_f32_shared_memory_fits_a_block():
-    """The f32 pass 1 holds q (64 or 128 padded slots), a 64-pixel tile of
-    k or v and p in f32: within Hopper's 227 KB a block."""
-    assert csa.f32_smem(100) == csa.f32_smem(128) == 229376 <= 232448
-    assert csa.f32_smem(1) == csa.f32_smem(64) == 147456
+    """The f32 pass 1 holds its ring of q and k chunks, the v tile, p's two
+    TF32 parts and the barriers at L's padded slot count (64, 104 or 128):
+    within Hopper's 227 KB a block."""
+    assert [csa.f32_slots(n) for n in (1, 64, 65, 100, 104, 105, 128)] == \
+        [64, 64, 104, 104, 104, 128, 128]
+    assert csa.f32_smem(64) == 198736
+    assert csa.f32_smem(104) == 225344
+    assert csa.f32_smem(128) == 215088
+    assert max(csa.f32_smem(n) for n in (64, 104, 128)) <= 232448
 
 
 @pytest.mark.parametrize("n_pix, n_sm, runs", [
