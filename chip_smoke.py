@@ -190,6 +190,10 @@ THETA_RTOL = 1e-5
 # all 100 slots, at the 256x512 low-res masks of a 1024x2048 frame
 PP_SHAPES = ((64, 256, 512), (100, 256, 512))
 PP_VALID = 40            # valid slots of the kernel-phase cases
+# a ragged case of the postprocess kernels (untimed): odd h (row tiles of
+# one row, blocks of one row) and w not a multiple of 32
+PP_RAGGED = (48, 45, 70)
+SSEG_RAGGED = (45, 70, 19)
 # fused vs reference postprocess: the fused theta sums in another order,
 # which may move a pixel that sits within an ulp of the threshold
 PAN_AGREE = 0.9999
@@ -400,6 +404,9 @@ def phase_build():
                                       postproc_v3.LIBRARY):
         log("build", json.dumps(row))
     check_claim_smem()
+    for row in tiled_kernel_resources():
+        log("build", json.dumps(row))
+    check_tiled_geometry()
     return {name: secs for name, (_, secs) in built.items()}
 
 
@@ -545,6 +552,67 @@ def claim_kernel_resources(*libs):
     return rows
 
 
+ARGMAX_MODES = {"0": "argmax", "1": "top2", "2": "repair"}
+
+
+def tiled_kernel_resources():
+    """Registers, spills and static shared memory of theta, of each
+    instance of argmax (one or two rows a block; argmax, top2, repair) and
+    of sseg (one or two rows a block), from ptxas: no call sets a dynamic
+    shared-memory size."""
+    from slotvps_tpu_torch.ops.cuda import postproc_v3 as pv3
+
+    smem, name = {}, None
+    for line in pv3.LIBRARY.ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used \d+ registers.*?(\d+) bytes smem", line)
+        if m and name:
+            smem[name] = int(m.group(1))
+    rows = []
+    for name, regs, stack, st, ld in ptxas_entries(pv3.LIBRARY):
+        am = re.search(r"argmax_kernelILi(\d)ELi(\d)E", name)
+        sg = re.search(r"sseg_kernelILi(\d)E", name)
+        if am:
+            kern = f"argmax_kernel<{am.group(1)}, " \
+                   f"{ARGMAX_MODES[am.group(2)]}>"
+        elif sg:
+            kern = f"sseg_kernel<{sg.group(1)}>"
+        elif "theta_kernel" in name:
+            kern = "theta_kernel"
+        else:
+            continue
+        rows.append(dict(kernel=kern, registers=regs, spill_stores=st,
+                         spill_loads=ld, stack_bytes=stack,
+                         static_smem_bytes=smem.get(name)))
+    if len(rows) != 9:
+        raise AssertionError(f"ptxas reported {len(rows)} tiled postprocess "
+                             "kernel instances, not 9 (theta, argmax x 2 "
+                             "row counts x 3 modes, sseg x 2)")
+    return rows
+
+
+def check_tiled_geometry():
+    """tiled_geometry (tested on the CPU) against the library's
+    pp_tiled_geometry: rows a block and grid of the argmax / repair and
+    sseg kernels."""
+    import ctypes
+
+    from slotvps_tpu_torch.ops.cuda import postproc_v3 as pv3
+
+    lib = pv3.LIBRARY.load()
+    out = (ctypes.c_int * 3)()
+    for h, w in ((256, 512), (45, 70), (6, 33), (12, 20), (1, 1)):
+        for hb in sorted({pv3.plain.tile_rows(h), h}):
+            lib.pp_tiled_geometry(h, w, hb, out)
+            rb, grid = pv3.tiled_geometry(h, w, hb)
+            if tuple(out) != (rb, *grid):
+                raise AssertionError(f"tiled geometry at h, w, hb = {h}, "
+                                     f"{w}, {hb}: library {tuple(out)}, "
+                                     f"wrapper {(rb, *grid)}")
+
+
 def check_claim_smem():
     """claim_geometry's statement of a claim kernel's shared memory
     (claim_smem, tested on the CPU) equals the libraries' at each plan."""
@@ -580,6 +648,24 @@ def _cuda_ms(fn, n=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _alone_ms(fn, n=10):
+    """The device ms a call of the port's own kernels (the
+    ``csrc/`` entries, in an anonymous namespace) takes, from the profiler
+    over ``n`` calls: the kernel alone, without the wrapper's host
+    prologue or torch's allocations and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for name, (ms, _) in _device_time_by_kernel(prof).items()
+               if "anonymous namespace" in name) / n
 
 
 def dcn_case(dev, h, w, cin, cout, halo, seed, b=1):
@@ -840,14 +926,213 @@ def postproc_case(dev, k, h, w, seed=0, n_valid=PP_VALID):
             small)
 
 
+def _blob_owner(rng, h, w, choices):
+    """A [4h, 4w] int8 owner map: coherent 2x2-cell regions, each owned by
+    one of ``choices`` (-1 = unowned)."""
+    cells = rng.choice(np.asarray(choices), size=(-(-h // 2), -(-w // 2)))
+    full = np.repeat(np.repeat(cells, 8, 0), 8, 1)[:4 * h, :4 * w]
+    return torch.from_numpy(full.astype(np.int8))
+
+
+# the argmax kernel's edge cases, name -> (K, h, w): seeded masks, a kept
+# set, thing flags and an owner map that stress one part of its tie rule
+# (no slot kept, only unowned things kept, every stuff value negative,
+# exact ties, things before stuff, owners that are removed or stuff slots,
+# values below -1e30), K = 1 and 127, row tiles of 1, 2, 4 and 8 rows;
+# widths not a multiple of 32.  tests/test_torch_argmax_tiled.py holds a
+# torch model of the kernel's schedule to the plain versions on them
+ARGMAX_CASES = {
+    "no_slot_kept": (12, 8, 40),
+    "only_unowned_things_kept": (12, 8, 40),
+    "stuff_all_negative": (12, 6, 33),
+    "exact_ties": (10, 4, 20),
+    "things_before_stuff": (16, 8, 40),
+    "owner_is_a_removed_slot": (16, 12, 36),
+    "owner_is_stuff": (12, 8, 24),
+    "values_below_neg": (10, 5, 17),
+    "k1": (1, 8, 40),
+    "k127": (127, 4, 12),
+    "hb1": (20, 5, 33),
+    "hb2": (20, 6, 35),
+    "hb4": (20, 12, 31),
+    "hb8": (20, 16, 64),
+}
+
+
+def argmax_case(name, seed=0):
+    """CPU tensors (m [K, h, w] f32, owner [4h, 4w] int8, kept, is_thing)
+    of edge case ``name`` of ARGMAX_CASES, made with numpy from ``seed``."""
+    k, h, w = ARGMAX_CASES[name]
+    rng = np.random.default_rng(seed + len(name))
+    m = rng.standard_normal((k, h, w)).astype(np.float32) * 2
+    for i in range(0, k, 3):
+        y, x = rng.integers(0, max(h - 3, 1)), rng.integers(0, max(w - 4, 1))
+        m[i, y:y + 3, x:x + 4] += 5.0
+    is_thing = rng.random(k) < 0.5
+    kept = rng.random(k) < 0.7
+    things = np.nonzero(is_thing)[0].tolist()
+    owner_from = [-1] + [t for t in things if kept[t]]
+    if name == "no_slot_kept":
+        kept[:] = False
+    elif name == "only_unowned_things_kept":
+        kept = is_thing.copy()
+        kept[0] = is_thing[0] = True
+        owner_from = [-1]
+    elif name == "stuff_all_negative":
+        m[~is_thing] = -np.abs(m[~is_thing]) - 0.5
+        kept[:] = True
+        owner_from = [-1] + things[:1]
+    elif name == "exact_ties":
+        is_thing[:] = False
+        kept[:] = True
+        m[3] = m[1]
+        m[7] = m[1]
+        m[5, :, : w // 2] = m[2, :, : w // 2]
+    elif name == "things_before_stuff":
+        is_thing[:] = np.arange(k) < k // 2
+        kept[:] = True
+        kept[1] = False
+        owner_from = [-1] + list(range(k // 2))
+    elif name == "owner_is_a_removed_slot":
+        is_thing[:] = np.arange(k) >= 4
+        kept[:] = True
+        kept[[5, 9]] = False      # removed by a small-area iteration
+        owner_from = [-1, 5, 6, 9, 10]
+    elif name == "owner_is_stuff":
+        is_thing[:] = np.arange(k) % 2 == 1
+        kept[:] = True
+        owner_from = [-1, 0, 1, 2, 3]
+    elif name == "values_below_neg":
+        kept[:] = True
+        kept[[2, 6]] = False
+        is_thing[:] = False
+        m[0] = -float("inf")
+        m[1, : h // 2] = -3e30
+        m[3:, : h // 2] = -2e30
+        m[4, h // 2:] = -1e30
+    elif name == "k1":
+        kept[:] = True
+        owner_from = [-1, 0]
+    owner = _blob_owner(rng, h, w, owner_from)
+    return (torch.from_numpy(m), owner, torch.from_numpy(kept),
+            torch.from_numpy(is_thing))
+
+
+# sseg's edge cases, (h, w, C): ties (a copied channel, a block of equal
+# logits) and -inf logits at one channel, more channels than one staged
+# chunk (20), odd h and w not a multiple of 32
+SSEG_CASES = ((6, 33, 19), (5, 8, 1), (4, 12, 21), (45, 70, 19))
+
+
+def sseg_case(h, w, c):
+    """Seeded [h, w, C] f32 logits (CPU) with ties and a -inf entry."""
+    g = torch.Generator().manual_seed(h * w + c)
+    x = torch.randn((h, w, c), generator=g) * 3
+    x[..., c - 1] = x[..., c // 2]
+    x[: h // 2, : w // 3, :] = 0.25
+    x[-1, -1, 0] = -float("inf")
+    return x
+
+
+def _removal(areas, kept):
+    """The kept slot touching the fewest row tiles removed: (kept after,
+    dirty tiles); nothing removed when no kept slot has pixels."""
+    n_tiles = (areas > 0).sum(0)
+    cand = torch.nonzero(kept & (n_tiles > 0)).flatten()
+    removed = torch.zeros_like(kept)
+    if len(cand):
+        removed[cand[n_tiles[cand].argmin()]] = True
+    return kept & ~removed, ((areas > 0) & removed[None]).any(-1)
+
+
+def _held_once(dev, kern, label, fn, ref):
+    """``fn()`` (one launch of wrapper ``kern`` on the card, none on the
+    CPU) equals ``ref()`` bit for bit."""
+    before = launch_counts()[kern]
+    got, want = fn(), ref()
+    _sync(dev)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    diff = sum(int((a != b).sum()) for a, b in zip(got, want))
+    launched = launch_counts()[kern] - before
+    if diff or launched != (1 if dev.type == "cuda" else 0):
+        raise AssertionError(f"{kern} on edge case {label}: {diff} entries "
+                             f"differ, {launched} launches")
+
+
+def hold_argmax_edge(dev, case):
+    """argmax, its runner-up map (top2), one repair (the kept slot
+    touching the fewest row tiles removed) and the K-minor argmax-areas on
+    edge case ``case`` of ARGMAX_CASES, each against its plain version.
+    Returns the case's row."""
+    from slotvps_tpu_torch.ops import postproc_fused as plain_fused
+    from slotvps_tpu_torch.ops import postproc_v3 as plain
+    from slotvps_tpu_torch.ops.cuda import postproc_fused as pfu
+    from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
+
+    m, owner, kept, is_thing = (t.to(dev) for t in argmax_case(case))
+    m1, areas = plain.argmax(m, owner, kept, is_thing)
+    kept_n, dirty = _removal(areas, kept)
+    m_hwk = m.permute(1, 2, 0).contiguous()
+    _held_once(dev, "argmax_hopper", case,
+               lambda: hv3.argmax_hopper(m, owner, kept, is_thing),
+               lambda: plain.argmax(m, owner, kept, is_thing))
+    _held_once(dev, "argmax_hopper_top2", case,
+               lambda: hv3.argmax_hopper(m, owner, kept, is_thing, top2=True),
+               lambda: plain.argmax(m, owner, kept, is_thing, top2=True))
+    _held_once(dev, "repair_hopper", case,
+               lambda: hv3.repair_hopper(m, owner, m1, kept_n, is_thing,
+                                         dirty, areas),
+               lambda: plain.repair(m, owner, m1, kept_n, is_thing, dirty,
+                                    areas))
+    _held_once(dev, "argmax_areas_hopper", case,
+               lambda: pfu.argmax_areas_hopper(m_hwk, owner, kept, is_thing),
+               lambda: plain_fused.argmax_areas(m_hwk, owner, kept,
+                                                is_thing))
+    return dict(case=case, shape=list(m.shape), kept=int(kept.sum()),
+                dirty_tiles=f"{int(dirty.sum())}/{dirty.numel()}")
+
+
+def hold_sseg_edge(dev, shape):
+    """sseg on the logits of sseg_case(*shape) against its plain
+    version."""
+    from slotvps_tpu_torch.ops import postproc_v3 as plain
+    from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
+
+    x = sseg_case(*shape).to(dev)
+    _held_once(dev, "sseg_hopper", f"sseg {shape}",
+               lambda: hv3.sseg_hopper(x), lambda: plain.sseg(x))
+    return dict(case="sseg", shape=list(shape))
+
+
+def phase_argmax_edges(dev):
+    """Every edge case of ARGMAX_CASES (hold_argmax_edge) and of SSEG_CASES
+    (hold_sseg_edge): each kernel bit-identical to its plain version, one
+    launch a call on the card.  Returns the cases' rows."""
+    rows = [hold_argmax_edge(dev, case) for case in ARGMAX_CASES]
+    rows += [hold_sseg_edge(dev, shape) for shape in SSEG_CASES]
+    log("kernels", f"argmax / top2 / repair / K-minor argmax / sseg edge "
+                   f"cases, each bit-identical to its plain version: "
+                   f"{json.dumps(rows)}")
+    return rows
+
+
+def _owned_px(owner, kept, is_thing):
+    """The full-res pixels whose owner is a kept thing slot."""
+    own = owner.long()
+    lut = torch.cat([kept & is_thing, kept.new_zeros(1)])
+    return int(lut[torch.where(own >= 0, own, len(kept))].sum())
+
+
 def _pp_bounds(k, h, w, n_valid, n_things, n_kept, n_kept_things,
-               dirty_frac, t):
+               dirty_frac, t, owned=0):
     """(bytes, operations) of the four functions on this run's data.  Each
     counts only the slots its output depends on (theta the valid slots,
-    claim the valid things, argmax and repair the kept slots), each input
-    read once and each output written once.  One slot's x4 upsample is
-    separable: 3 flops per row-phase value and 3 per column-phase value; a
-    compare, exp or log is one operation."""
+    claim the valid things, argmax and repair the kept stuff slots and,
+    where a kept thing owns a pixel (``owned`` full-res pixels), that
+    thing), each input read once and each output written once.  One slot's
+    x4 upsample is separable: 3 flops per row-phase value and 3 per
+    column-phase value; a compare, exp or log is one operation."""
     hw, full = h * w, 16 * h * w
     up = 3 * 4 * hw + 3 * full                   # one slot, rows + columns
     # per valid slot: max, subtract, exp, add; per pixel: log and two adds
@@ -857,11 +1142,17 @@ def _pp_bounds(k, h, w, n_valid, n_things, n_kept, n_kept_things,
     # thing: the claim
     claim = (4 * n_things * hw + 4 * full + full + 5 * k,
              n_things * (up + 5 * full) + n_kept_things * 2 * full)
-    # per kept slot: owner test, compare, select; per pixel: its count
-    argmax = (4 * n_kept * hw + full + 4 * full + 4 * t * k + 2 * k,
-              n_kept * (up + 3 * full) + full)
+    # per kept stuff slot: compare, select; a kept thing counts 0.0 off
+    # the pixels it owns, so its mask is needed under those (owned / 16
+    # low-res values) with one upsample (~6 flops a pixel), a compare and
+    # a select; per pixel: the owner test, the 0.0 and -1e30 candidates,
+    # its count
+    n_stuff = n_kept - n_kept_things
+    argmax = (4 * n_stuff * hw + owned // 4 + full + 4 * full + 4 * t * k
+              + 2 * k,
+              n_stuff * (up + 2 * full) + 9 * owned + 4 * full)
     # the argmax on the dirty tiles; the clean tiles copied through
-    repair = (dirty_frac * (4 * n_kept * hw + full)
+    repair = (dirty_frac * (4 * n_stuff * hw + owned // 4 + full)
               + (1 - dirty_frac) * 4 * full + 4 * full + 8 * t * k + t
               + 2 * k,
               dirty_frac * argmax[1])
@@ -870,15 +1161,19 @@ def _pp_bounds(k, h, w, n_valid, n_things, n_kept, n_kept_things,
 
 
 def phase_postproc_kernels(dev, shapes=PP_SHAPES, n_valid=PP_VALID,
-                           timed=True):
-    """The four postprocess kernels against their plain versions.  Integer
-    outputs must be bit-identical given identical inputs; theta within
-    THETA_RTOL * max(1, |theta|).  Returns {K: {kernel: row}}."""
+                           timed=True, ragged=PP_RAGGED):
+    """The four postprocess kernels against their plain versions at each
+    of ``shapes`` and, untimed, at the ragged shape.  Integer outputs must
+    be bit-identical given identical inputs; theta within THETA_RTOL *
+    max(1, |theta|).  Timed rows give the wrapper's CUDA-event ms (``ms``)
+    and the kernel's device ms alone (``alone_ms``, profiler).  Returns
+    {K: {kernel: row}} of ``shapes``."""
     from slotvps_tpu_torch.ops import postproc_v3 as plain
     from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
 
     out = {}
-    for k, h, w in shapes:
+    for k, h, w in tuple(shapes) + ((ragged,) if ragged else ()):
+        timed_here = timed and (k, h, w) != ragged
         m, labels, valid, is_thing, slots, small = postproc_case(
             dev, k, h, w, seed=k, n_valid=n_valid)
         th = hv3.theta_hopper(m, valid, 0.4)
@@ -927,7 +1222,8 @@ def phase_postproc_kernels(dev, shapes=PP_SHAPES, n_valid=PP_VALID,
             raise AssertionError(f"postproc case lost its regime: {regime}")
         bounds = _pp_bounds(k, h, w, int(valid.sum()), n_things,
                             int(kept.sum()), regime["kept_things"],
-                            n_dirty / dirty.numel(), dirty.numel())
+                            n_dirty / dirty.numel(), dirty.numel(),
+                            _owned_px(owner_ref, kept, is_thing))
         calls = {
             "theta_hopper": (lambda: hv3.theta_hopper(m, valid, 0.4),
                              lambda: plain.theta(m, valid, 0.4)),
@@ -948,34 +1244,40 @@ def phase_postproc_kernels(dev, shapes=PP_SHAPES, n_valid=PP_VALID,
         rows = {}
         for name, (kern, ref) in calls.items():
             b_ms, b_by = bound(*bounds[name])
-            row = dict(kernel=name, K=k, max_abs_err=errs[name],
-                       bound_ms=b_ms, bound_by=b_by)
-            if timed:
+            row = dict(kernel=name, K=k, shape=[k, h, w],
+                       max_abs_err=errs[name], bound_ms=b_ms, bound_by=b_by)
+            if timed_here:
                 row["ms"] = _cuda_ms(kern)
+                row["alone_ms"] = _alone_ms(kern)
                 row["plain_ms"] = _cuda_ms(ref, n=5, warmup=1)
             log("kernels", json.dumps(row))
             rows[name] = row
-        out[k] = rows
+        if (k, h, w) != ragged:
+            out[k] = rows
     return out
 
 
-def phase_sseg_kernel(dev, shape=SSEG_SHAPE, timed=True):
+def phase_sseg_kernel(dev, shape=SSEG_SHAPE, timed=True,
+                      ragged=SSEG_RAGGED):
     """sseg kernel vs plain on seeded quarter-res logits [h, w, C] with
-    ties (a channel copied, a block where all channels are equal): the
-    maps must be equal."""
+    ties (a channel copied, a block where all channels are equal), at
+    ``shape`` and at the ragged shape: the maps must be equal.  The row is
+    ``shape``'s: the wrapper's CUDA-event ms (``ms``) and the kernel's
+    device ms alone (``alone_ms``, profiler)."""
     from slotvps_tpu_torch.ops import postproc_v3 as plain
     from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
 
-    h, w, c = shape
-    g = torch.Generator(device=dev).manual_seed(7)
-    x = torch.randn((h, w, c), generator=g, device=dev) * 3
-    x[..., c - 1] = x[..., 2]
-    x[: h // 8, : w // 8, :] = 0.5
-    out = hv3.sseg_hopper(x)
-    ref = plain.sseg(x)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    n_diff = int((out != ref).sum())
+    n_diff = 0
+    for h, w, c in (ragged, shape) if ragged else (shape,):
+        g = torch.Generator(device=dev).manual_seed(7)
+        x = torch.randn((h, w, c), generator=g, device=dev) * 3
+        x[..., c - 1] = x[..., 2]
+        x[: h // 8, : w // 8, :] = 0.5
+        out = hv3.sseg_hopper(x)
+        ref = plain.sseg(x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        n_diff += int((out != ref).sum())
     full = 16 * h * w
     # read the logits once, write the int64 map; per full-res pixel and
     # channel a column phase (3 flops) and a compare, per quarter-res
@@ -986,6 +1288,7 @@ def phase_sseg_kernel(dev, shape=SSEG_SHAPE, timed=True):
                bound_ms=b_ms, bound_by=b_by)
     if timed:
         row["ms"] = _cuda_ms(lambda: hv3.sseg_hopper(x))
+        row["alone_ms"] = _alone_ms(lambda: hv3.sseg_hopper(x))
         row["plain_ms"] = _cuda_ms(lambda: plain.sseg(x), n=5, warmup=1)
     log("kernels", json.dumps(row))
     if n_diff:
@@ -1447,6 +1750,13 @@ def phase_stages(model, cfg, frames, label="bf16"):
             ms, n = map(sum, zip(*hits))
             log("stages", f"  {kern}: {ms:.3f} ms in {n} launches over 3 "
                           "frames")
+    # argmax and repair are instances of one kernel: <rows, mode>, mode 0
+    # argmax, 2 repair
+    for name, (ms, n) in by_name.items():
+        inst = re.search(r"argmax_kernel<\d, \d>", name)
+        if inst:
+            log("stages", f"  {inst.group(0)}: {ms:.3f} ms in {n} launches "
+                          "over 3 frames")
     return med
 
 
@@ -2078,14 +2388,18 @@ def phase_train_parity(dev, init_state, batch):
                 plain_peak_mem_gib=peak_p, step_ms=step_ms)
 
 
-def phase_top2_hist(dev, shape=PP_SHAPES[0], n_valid=PP_VALID, timed=True):
+def phase_top2_hist(dev, shape=PP_SHAPES[0], n_valid=PP_VALID, timed=True,
+                    ragged=PP_RAGGED):
     """argmax with its runner-up map and hist (the postproc_v3 entries only
     tests reach) against their plain versions on the K = 64 case of the
-    postprocess kernels: bit-identical.  hist also gets torch.bincount's
-    time.  Returns {name: row}."""
+    postprocess kernels and (untimed) the ragged case: bit-identical.
+    hist also gets torch.bincount's time.  Returns {name: row} of
+    ``shape``."""
     from slotvps_tpu_torch.ops import postproc_v3 as plain
     from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
 
+    if ragged:
+        phase_top2_hist(dev, ragged, n_valid, False, None)
     k, h, w = shape
     m, labels, valid, is_thing, slots, _ = postproc_case(
         dev, k, h, w, seed=k, n_valid=n_valid)
@@ -2109,7 +2423,9 @@ def phase_top2_hist(dev, shape=PP_SHAPES[0], n_valid=PP_VALID, timed=True):
     am_bytes, am_ops = _pp_bounds(k, h, w, int(valid.sum()),
                                   slots[1] - slots[0], n_kept,
                                   int((kept & is_thing).sum()), 0.0,
-                                  r_areas.shape[0])["argmax_hopper"]
+                                  r_areas.shape[0],
+                                  _owned_px(owner, kept, is_thing))[
+                                      "argmax_hopper"]
     # the runner-up: one more compare and select per kept slot and pixel,
     # and its map written once; hist: the id map read once, K counts
     bounds = {"argmax_hopper_top2": (am_bytes + 4 * full,
@@ -2124,10 +2440,11 @@ def phase_top2_hist(dev, shape=PP_SHAPES[0], n_valid=PP_VALID, timed=True):
     rows = {}
     for name, (kern, ref, lib) in calls.items():
         b_ms, b_by = bound(*bounds[name])
-        row = dict(kernel=name, K=k, max_abs_err=errs[name], bound_ms=b_ms,
-                   bound_by=b_by)
+        row = dict(kernel=name, K=k, shape=[k, h, w],
+                   max_abs_err=errs[name], bound_ms=b_ms, bound_by=b_by)
         if timed:
             row["ms"] = _cuda_ms(kern)
+            row["alone_ms"] = _alone_ms(kern)
             row["plain_ms"] = _cuda_ms(ref, n=5, warmup=1)
             row["library_ms"] = _cuda_ms(lib) if lib else None
         log("kernels", json.dumps(row))
@@ -2444,7 +2761,8 @@ def phase_fused_chain(dev, model, cfg, frame, timed=True):
                                      f"{regime}")
         n_kept = int(kept_r.sum())
         bounds = _pp_bounds(k, h, w, n_valid, n_things, n_kept,
-                            n_kept_things, 0.0, 1)
+                            n_kept_things, 0.0, 1,
+                            _owned_px(owner_r, kept_r, is_thing))
         bounds = {"theta_fused_hopper": bounds["theta_hopper"],
                   "claim_scan_fused_hopper": bounds["claim_hopper"],
                   "argmax_areas_hopper": bounds["argmax_hopper"]}
@@ -2468,6 +2786,7 @@ def phase_fused_chain(dev, model, cfg, frame, timed=True):
                        max_abs_err=errs[name], bound_ms=b_ms, bound_by=b_by)
             if timed:
                 row["ms"] = _cuda_ms(kern)
+                row["alone_ms"] = _alone_ms(kern)
                 row["plain_ms"] = _cuda_ms(ref, n=5, warmup=1)
             log("fused", json.dumps(row))
             if label == "random":
@@ -2898,8 +3217,9 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_rows, serving_rows,
     for name, row in list(pp_rows.items()) + [("sseg_hopper", sseg_row)]:
         rows.append(dict(
             name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], build_s=build_s["postproc_v3"]))
+            alone_ms=row["alone_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            build_s=build_s["postproc_v3"]))
     for sa_row in sa_rows:
         rows.append(dict(
             name=sa_row["kernel"], max_abs_err=sa_row["max_abs_err"],
@@ -2913,14 +3233,15 @@ def report(dcn_rows, bwd_rows, pp_rows, sseg_row, sa_rows, serving_rows,
         lib = "claim_scan" if name == "claim_scan_hopper" else "postproc_v3"
         rows.append(dict(
             name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row.get("library_ms"),
-            build_s=build_s[lib]))
+            alone_ms=row.get("alone_ms"), plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row.get("library_ms"), build_s=build_s[lib]))
     for name, row in fused_rows.items():
         rows.append(dict(
             name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], build_s=build_s["postproc_v3"]))
+            alone_ms=row["alone_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            build_s=build_s["postproc_v3"]))
     for kern in rows:
         source, replaces, path = KERNELS[kern["name"]]
         # no single PyTorch call computes these functions: torchvision's
@@ -2957,6 +3278,7 @@ def main():
                phase_slot_attention(dev, dtype=torch.float32)]
     phase_batch_invariance(dev)
     top2_rows = phase_top2_hist(dev)
+    phase_argmax_edges(dev)
     phase_claim_edges(dev)
     cfg, cfg32 = slice_config(), f32_config()
     model, frames = prepare(dev, cfg)

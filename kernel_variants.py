@@ -12,6 +12,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 kernel_variants.py claim_scan
     python3 kernel_variants.py claim
     python3 kernel_variants.py theta
+    python3 kernel_variants.py argmax
+    python3 kernel_variants.py sseg
 
 Each variant is ``slotvps_tpu_torch/csrc/<kernel>.cu`` with a few text
 replacements (VARIANTS below; a replacement of three strings edits the
@@ -30,11 +32,22 @@ theta claim at K = 64 on 256x512 low-res masks (30 valid things), slot-
 major and K-minor; each variant also at chunks of 16 ("<variant>_chunk16",
 by the geometry, not the source).  ``theta`` runs theta on 256x512
 low-res masks at K = 64 with 40 valid slots (slot-major) and at K = 100
-with every slot valid (K-minor).  One JSON line per (shape, variant):
+with every slot valid (K-minor).  ``argmax`` runs the argmax entries on
+chip_smoke.py's postprocess cases (``postproc_case``: 256x512 low-res
+masks, 40 valid slots, the claim loop's owner map and kept set) at K = 64
+and K = 100 (``pp_argmax``), with the runner-up map at K = 64, the
+small-area repair with that case's dirty tiles (``pp_repair``) and the
+K-minor entry on the K-minor chain's 256x512x100 random masks
+(``pp_argmax_hwk``); ``sseg`` the semantic argmax on chip_smoke.py's
+[256, 512, 19] logits with ties.  For these two, a "wrapper" line per case
+also gives the wrapper's time as chip_smoke.py takes it (CUDA events
+around one call, its host prologue included), 20 wrapper calls back to
+back, and the host's ms to enqueue one call.  One JSON line per (shape, variant):
 CUDA-event ms (mean of 20 calls after 3; 10 after 2 for the backward)
 and the error relative to the plain version (the backward: of dx, doff
 and dW each; the claim loops: the entries of keep and owner that
-differ; theta: relative to max(1, |theta|)).  The variants that skip work give wrong results on purpose:
+differ; theta: relative to max(1, |theta|); argmax and sseg: the
+entries of the maps and areas that differ).  The variants that skip work give wrong results on purpose:
 they tell where the time goes.
 """
 
@@ -43,9 +56,11 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -298,30 +313,99 @@ VARIANTS = {"slot_attention": {
          "    if (st < 0) claim_and_count(a, s, t > 0 ? t - 1 : -1, st, t);")],
 }}
 VARIANTS["claim"] = VARIANTS["claim_scan"]
+# the tiled postprocess kernels (theta, argmax, sseg) share run_chunks():
+# these edits of it stage nothing (stale shared memory is used)
+_NO_STAGING = [
+    ("  if (n_chunks > 0) {\n    st.load(list, 0, min(CH, n));\n"
+     "    st.store(R[0], min(CH, n));\n  }\n", ""),
+    ("    if (nc_next > 0) st.load(", "    if (nc_next < 0) st.load("),
+    ("    if (nc_next > 0) st.store(", "    if (nc_next < 0) st.store(")]
+# one low-res row a block (128 threads)
+_ONE_ROW = [("  return hb % 2 == 0 ? 2 : 1;", "  return 1;")]
+
+
+def _skip_pass(head, indent=4):
+    """The pass over the staged slots whose lambda starts with ``head``
+    skipped: staging alone (and what comes after the pass)."""
+    pad = " " * indent
+    return [(pad + "if (!inside) return;\n#pragma unroll 4\n" + head,
+             pad + "if (!inside || nc >= 0) return;\n#pragma unroll 4\n"
+             + head)]
+
+
 VARIANTS["theta"] = {
     "as_is": [],
-    # nothing staged (the valid list is still built; stale shared memory is
-    # used)
-    "no_staging": [("  if (n_chunks > 0) {\n    load(0, min(TH_CH, n_valid));\n"
-                    "    store(0, min(TH_CH, n_valid));\n  }\n", ""),
-                   ("    if (nc_next > 0) load(", "    if (nc_next < 0) load("),
-                   ("    if (nc_next > 0) store(",
-                    "    if (nc_next < 0) store(")],
+    "no_staging": _NO_STAGING,
     # staging alone: no thread takes the pass over the slots
-    "staging_only": [("    if (inside) {\n#pragma unroll 4",
-                      "    if (inside && K < 0) {\n#pragma unroll 4")],
+    "staging_only": _skip_pass(
+        "               for (int t = 0; t < nc; ++t) {\n"
+        "                 float v[4];\n"
+        "                 col_phases(&Rt[t][r][pr][jl], v);\n"
+        "#pragma unroll\n"
+        "                 for (int c = 0; c < 4; ++c) {\n"
+        "                   const float d", indent=15),
     "no_exp": [("const float e = expf(-fabsf(d));",
                 "const float e = -fabsf(d);")],
     # one low-res row a block (128 threads), chunks of 8 valid slots
     "one_row": [("constexpr int TH_RB = 2;", "constexpr int TH_RB = 1;")],
     "chunk8": [("constexpr int TH_CH = 16;", "constexpr int TH_CH = 8;")],
 }
+VARIANTS["argmax"] = {
+    "as_is": [],
+    "no_staging": _NO_STAGING,
+    # staging alone: no thread takes the pass over the kept stuff slots
+    # (the maps and areas are still written)
+    "staging_only": _skip_pass(
+        "    for (int t = 0; t < nc; ++t) {\n"
+        "      const int k = s_list[c0 + t];"),
+    # the areas are not counted: no shared or global atomics (the entry
+    # still zeroes them)
+    "no_atomics": [
+        ("  if (one && four) {\n    if ((tid & 31) == 0) atomicAdd(",
+         "  if (one && four) {\n    if (K < 0) atomicAdd("),
+        ("      if (v >= 0 && (tid & 31) == __ffs(peers) - 1)\n"
+         "        atomicAdd(&hist[v], __popc(peers));",
+         "      if (K < 0) atomicAdd(&hist[v], __popc(peers));"),
+        ("    if (hist[k]) atomicAdd(&a.areas[(size_t)t_row * K + k], "
+         "hist[k]);", "    if (K < 0) a.areas[k] = hist[k];")],
+    # every warp aggregates by id and pixel phase (no one-id fast path)
+    "match_any_only": [("  if (one && four) {", "  if (one && four && K < 0) {")],
+    # no upsampled value of the owning thing (its loads and arithmetic)
+    "no_owner": [("  const bool pre = inside && kept_thing(o0) &&",
+                  "  const bool pre = K < 0 && kept_thing(o0) &&"),
+                 ("    if (inside && kept_thing(o)) {",
+                  "    if (K < 0 && kept_thing(o)) {")],
+    # at least 4 blocks an SM (64 registers a thread)
+    "min_blocks4": [("__launch_bounds__(4 * RB * CW)\nargmax_kernel",
+                     "__launch_bounds__(4 * RB * CW, 4)\nargmax_kernel")],
+    "one_row": _ONE_ROW,
+    "chunk8": [("constexpr int AM_CH = 16;", "constexpr int AM_CH = 8;")],
+}
+VARIANTS["sseg"] = {
+    "as_is": [],
+    "no_staging": _NO_STAGING,
+    # staging and the map's store, no pass over the channels
+    "staging_only": _skip_pass(
+        "    for (int t = 0; t < nc; ++t) {\n      float v[4];\n"
+        "      col_phases(&Rt[t][r][pr][jl], v);\n#pragma unroll\n"
+        "      for (int c = 0; c < 4; ++c)\n"
+        "        if (v[c] > best[c]) {"),
+    # the int64 map not stored
+    "no_store": [("  o[0] = make_longlong2(id[0], id[1]);\n"
+                  "  o[1] = make_longlong2(id[2], id[3]);",
+                  "  if (C < 0) {\n    o[0] = make_longlong2(id[0], id[1]);"
+                  "\n    o[1] = make_longlong2(id[2], id[3]);\n  }")],
+    "one_row": _ONE_ROW,
+    # 16 channels a chunk (Cityscapes' 19 in two)
+    "chunk16": [("constexpr int SG_CH = 20;", "constexpr int SG_CH = 16;")],
+}
 # kernel variants -> the library whose entry points they load
 SOURCE = {"slot_attention": "slot_attention",
           "slot_attention_f32": "slot_attention", "deform_conv": "deform_conv",
           "dcn_backward": "deform_conv", "dcn_f32": "deform_conv",
           "dcn_backward_f32": "deform_conv", "claim_scan": "claim_scan",
-          "claim": "postproc_v3", "theta": "postproc_v3"}
+          "claim": "postproc_v3", "theta": "postproc_v3",
+          "argmax": "postproc_v3", "sseg": "postproc_v3"}
 # (B, H, W, Cin, Cout, halo) of the backward's cases: P2 and P4 of the
 # 800x1600 training crop (the reference and the current frame)
 BWD_SHAPES = ((2, 200, 400, 256, 256, 2), (2, 50, 100, 256, 256, 4))
@@ -657,6 +741,142 @@ def run_theta(libs, dev, stream):
                   flush=True)
 
 
+def _wrapper_line(case, fn):
+    """The wrapper's time as chip_smoke.py takes it (CUDA events around
+    one call, host prologue included), 20 calls back to back, and the
+    host's ms to enqueue one call (median of 20)."""
+    import chip_smoke
+
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(json.dumps({"case": case, "variant": "wrapper",
+                      "event_ms": chip_smoke._cuda_ms(fn),
+                      "back_to_back_ms": _ms(fn),
+                      "host_enqueue_ms": statistics.median(host)}),
+          flush=True)
+
+
+def _pp_variants(libs, case, call, outs, refs, zero=()):
+    """Each variant's ``call(lib)`` (one launch of a postprocess entry):
+    one run on zeroed ``zero`` tensors, whose ``outs`` are held to
+    ``refs`` (the entries that differ), then the mean of 20 calls."""
+    for name, lib in libs.items():
+        for t in zero:
+            t.zero_()
+        call(lib)
+        torch.cuda.synchronize()
+        diff = sum(int((o != r).sum()) for o, r in zip(outs, refs))
+        ms = _ms(lambda lib=lib: call(lib))
+        print(json.dumps({"case": case, "variant": name, "ms": ms,
+                          "mismatches": diff}), flush=True)
+
+
+def _checked(lib, rc, entry):
+    if rc:
+        raise RuntimeError(f"{entry}: " + lib.pp_error_string(rc).decode())
+
+
+def run_argmax(libs, dev, stream):
+    """argmax, its runner-up map and repair on chip_smoke.py's postprocess
+    cases at K = 64 and 100 (256x512, 40 valid), and the K-minor entry on
+    the K-minor chain's random masks (256x512x100, every slot valid)."""
+    import chip_smoke
+    from slotvps_tpu_torch.ops import postproc_fused as tfu
+    from slotvps_tpu_torch.ops.cuda import postproc_fused as pfu
+
+    for k in (64, 100):
+        m, labels, valid, is_thing, _, small = chip_smoke.postproc_case(
+            dev, k, 256, 512, seed=k, n_valid=chip_smoke.PP_VALID)
+        _, h, w = m.shape
+        hb = tv3.tile_rows(h)
+        th = tv3.theta(m, valid, 0.4)
+        keep, owner = tv3.claim(m, th, labels, is_thing, valid, 0.03)
+        kept = torch.where(is_thing, keep, valid)
+        kept8, thing8 = kept.to(torch.uint8), is_thing.to(torch.uint8)
+        r1, r2, r_areas = tv3.argmax(m, owner, kept, is_thing, top2=True)
+        m_id, m2_id = torch.empty_like(r1), torch.empty_like(r1)
+        areas = torch.empty_like(r_areas)
+        for top2 in (False, True) if k == 64 else (False,):
+            def call(lib, top2=top2):
+                _checked(lib, lib.pp_argmax(
+                    m.data_ptr(), owner.data_ptr(), kept8.data_ptr(),
+                    thing8.data_ptr(), m_id.data_ptr(),
+                    m2_id.data_ptr() if top2 else None, areas.data_ptr(), k,
+                    h, w, hb, stream), "pp_argmax")
+            case = f"argmax_K{k}" + ("_top2" if top2 else "")
+            _pp_variants(libs, case, call,
+                         (m_id, areas) + ((m2_id,) if top2 else ()),
+                         (r1, r_areas) + ((r2,) if top2 else ()), (areas,))
+            _wrapper_line(case, lambda top2=top2: pv3.argmax_hopper(
+                m, owner, kept, is_thing, top2=top2))
+        removed = torch.zeros_like(kept)
+        removed[list(small)] = True
+        kept_n = kept & ~removed
+        dirty = ((r_areas > 0) & removed[None]).any(-1)
+        q1, q_areas = tv3.repair(m, owner, r1, kept_n, is_thing, dirty,
+                                 r_areas)
+        kept_n8, dirty8 = kept_n.to(torch.uint8), dirty.to(torch.uint8)
+
+        def call(lib):
+            _checked(lib, lib.pp_repair(
+                m.data_ptr(), owner.data_ptr(), r1.data_ptr(),
+                kept_n8.data_ptr(), thing8.data_ptr(), dirty8.data_ptr(),
+                r_areas.data_ptr(), m_id.data_ptr(), areas.data_ptr(), k, h,
+                w, hb, stream), "pp_repair")
+        case = f"repair_K{k}_dirty{int(dirty.sum())}of{dirty.numel()}"
+        _pp_variants(libs, case, call, (m_id, areas), (q1, q_areas),
+                     (areas,))
+        _wrapper_line(case, lambda: pv3.repair_hopper(
+            m, owner, r1, kept_n, is_thing, dirty, r_areas))
+    h, w, k = chip_smoke.FUSED_SHAPE
+    g = torch.Generator(device=dev).manual_seed(11)
+    labels = torch.randint(0, 19, (k,), generator=g, device=dev)
+    m = torch.randn((h, w, k), generator=g, device=dev)
+    valid = torch.ones(k, dtype=torch.bool, device=dev)
+    is_thing = labels > 10
+    th = tfu.theta_fused(m, valid, 0.4)
+    keep, owner = tfu.claim_scan_fused(m, th, labels, is_thing, valid, 0.03)
+    kept = torch.where(is_thing, keep, valid)
+    kept8, thing8 = kept.to(torch.uint8), is_thing.to(torch.uint8)
+    r1, r_areas = tfu.argmax_areas(m, owner, kept, is_thing)
+    m_id, areas = torch.empty_like(r1), torch.empty_like(r_areas)
+
+    def call(lib):
+        _checked(lib, lib.pp_argmax_hwk(
+            m.data_ptr(), owner.data_ptr(), kept8.data_ptr(),
+            thing8.data_ptr(), m_id.data_ptr(), areas.data_ptr(), k, h, w,
+            stream), "pp_argmax_hwk")
+    _pp_variants(libs, "argmax_hwk_K100", call, (m_id, areas),
+                 (r1, r_areas), (areas,))
+    _wrapper_line("argmax_hwk_K100", lambda: pfu.argmax_areas_hopper(
+        m, owner, kept, is_thing))
+
+
+def run_sseg(libs, dev, stream):
+    """sseg on chip_smoke.py's [256, 512, 19] logits (a copied channel and
+    a block of equal channels: ties)."""
+    import chip_smoke
+
+    h, w, c = chip_smoke.SSEG_SHAPE
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((h, w, c), generator=g, device=dev) * 3
+    x[..., c - 1] = x[..., 2]
+    x[: h // 8, : w // 8, :] = 0.5
+    ref = tv3.sseg(x)
+    out = torch.empty_like(ref)
+
+    def call(lib):
+        _checked(lib, lib.pp_sseg(x.data_ptr(), out.data_ptr(), c, h, w,
+                                  stream), "pp_sseg")
+    _pp_variants(libs, f"sseg_{h}x{w}x{c}", call, (out,), (ref,))
+    _wrapper_line(f"sseg_{h}x{w}x{c}", lambda: pv3.sseg_hopper(x))
+
+
 def main():
     kernel = sys.argv[1] if len(sys.argv) > 1 else "slot_attention"
     if kernel not in VARIANTS:
@@ -664,9 +884,14 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA device")
     setup_precision()
+    print(json.dumps({"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()}), flush=True)
     dev = torch.device("cuda")
     mod = {"slot_attention": sa, "slot_attention_f32": sa,
-           "claim_scan": cs, "claim": pv3, "theta": pv3}.get(kernel, dc)
+           "claim_scan": cs, "claim": pv3, "theta": pv3, "argmax": pv3,
+           "sseg": pv3}.get(kernel, dc)
     run = {"slot_attention": run_slot_attention,
            "slot_attention_f32": lambda libs, dev, stream: run_slot_attention(
                libs, dev, stream, torch.float32),
@@ -674,7 +899,8 @@ def main():
            "dcn_backward": run_dcn_backward, "dcn_f32": run_dcn_f32,
            "dcn_backward_f32": run_dcn_backward_f32,
            "claim_scan": run_claim_scan, "claim": run_claim,
-           "theta": run_theta}[kernel]
+           "theta": run_theta, "argmax": run_argmax,
+           "sseg": run_sseg}[kernel]
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), kernel, mod._declare)
         run(libs, dev, torch.cuda.current_stream().cuda_stream)

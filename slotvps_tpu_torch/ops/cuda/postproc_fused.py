@@ -82,7 +82,7 @@ def argmax_areas_hopper(m_hwk: torch.Tensor, owner: torch.Tensor,
     kept8 = _slot_vec(name, "kept", kept, k, dev)
     thing8 = _slot_vec(name, "is_thing", is_thing, k, dev)
     m_id = torch.empty((4 * h, 4 * w), dtype=torch.int32, device=dev)
-    areas = torch.zeros((k,), dtype=torch.int32, device=dev)
+    areas = torch.empty((k,), dtype=torch.int32, device=dev)
     lib = LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.pp_argmax_hwk(m_hwk.data_ptr(), owner.data_ptr(),

@@ -34,10 +34,23 @@ from slotvps_tpu_torch.ops.cuda.claim_scan import (card_sms, claim_buffers,
                                                    claim_geometry)
 
 MAX_SLOTS = 127   # int8 owner maps
+TILE_COLS = 32    # low-res columns a block of the tiled kernels
 # staging bytes a chunk slot of the claim kernel: the four f32 row phases
 # of a strip of 256 low-res columns and both halos (csrc/postproc_v3.cu
 # CSC)
 CLAIM_STAGE = 4 * 4 * (256 + 2)
+
+
+def tiled_geometry(h: int, w: int, hb: int):
+    """(rows a block, grid (x, y)) of the argmax / repair and sseg kernels
+    for h x w low-res rows in row tiles of ``hb`` rows (``hb`` divides
+    ``h``; the K-minor argmax and sseg take the whole map, ``hb = h``): a
+    block owns ``rb`` low-res rows x 32 columns, ``rb`` = 2 when that
+    divides the tile, else 1, so that a block never spans two tiles.  The
+    C entries compute the same (``csrc/postproc_v3.cu`` ``tiled_rows``;
+    ``pp_tiled_geometry`` reports it)."""
+    rb = 2 if hb % 2 == 0 else 1
+    return rb, (-(-w // TILE_COLS), h // rb)
 
 
 def _declare(lib: ctypes.CDLL):
@@ -54,6 +67,8 @@ def _declare(lib: ctypes.CDLL):
     lib.pp_hist.argtypes = [p, ctypes.c_longlong, i, p, p]
     lib.pp_repair.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.pp_sseg.argtypes = [p, p, i, i, i, p]
+    lib.pp_tiled_geometry.argtypes = [i, i, i, p]
+    lib.pp_tiled_geometry.restype = None
     for fn in (lib.pp_theta, lib.pp_theta_hwk, lib.pp_claim,
                lib.pp_claim_hwk, lib.pp_argmax, lib.pp_argmax_hwk,
                lib.pp_repair, lib.pp_hist, lib.pp_sseg):
@@ -103,10 +118,13 @@ def _on_card(name: str, m: torch.Tensor, vecs=(), k_minor: bool = False,
 def _slot_vec(name: str, key: str, t: torch.Tensor, n: int, dev,
               dtype=torch.uint8) -> torch.Tensor:
     """A per-slot (or per-tile) vector of length ``n`` on ``dev`` as a
-    contiguous ``dtype`` tensor for the kernel."""
+    contiguous ``dtype`` tensor for the kernel; a contiguous bool vector
+    goes to uint8 as a view of its bytes (no device copy)."""
     if t.shape != (n,) or t.device != dev:
         raise ValueError(f"{name}: {key} must be a [{n}] tensor on {dev}, "
                          f"got {tuple(t.shape)} on {t.device}")
+    if t.dtype == torch.bool and dtype == torch.uint8 and t.is_contiguous():
+        return t.view(torch.uint8)
     return t.to(dtype).contiguous()
 
 
@@ -214,7 +232,7 @@ def argmax_hopper(m_klow: torch.Tensor, owner: torch.Tensor,
     thing8 = _slot_vec("argmax_hopper", "is_thing", is_thing, k, dev)
     m_id = torch.empty((4 * h, 4 * w), dtype=torch.int32, device=dev)
     m2_id = torch.empty_like(m_id) if top2 else None
-    areas = torch.zeros((h // hb, k), dtype=torch.int32, device=dev)
+    areas = torch.empty((h // hb, k), dtype=torch.int32, device=dev)
     lib = LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.pp_argmax(m_klow.data_ptr(), owner.data_ptr(),
@@ -257,7 +275,7 @@ def repair_hopper(m_klow: torch.Tensor, owner: torch.Tensor,
                          f"{tuple(areas_tile_prev.shape)}")
     prev = areas_tile_prev.contiguous()
     m_id = torch.empty((4 * h, 4 * w), dtype=torch.int32, device=dev)
-    areas = torch.zeros((t, k), dtype=torch.int32, device=dev)
+    areas = torch.empty((t, k), dtype=torch.int32, device=dev)
     lib = LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.pp_repair(m_klow.data_ptr(), owner.data_ptr(),

@@ -15,11 +15,14 @@ libraries, and on its seeded r50_fpn_slotvps weights and synthetic
   the f32 path (impl="fused", "pallas" and "jax"): median host ms over 3
   passes of the 4 frames, each between two device synchronizes; and, from
   a torch.profiler pass over the 4 frames, the claim kernels' device ms
-  and launches a frame;
-* ``call``: a claim wrapper on chip_smoke.py's postprocess cases (theta
-  claim at K = 64 and 100; the claim scan on the K = 100 case's planes in
-  the K-minor layout): the CUDA-event ms of a call as chip_smoke.py times
-  it, the host's ms to enqueue it, and the profiler's device ms a launch.
+  and launches a frame, and the same for each postprocess kernel by name
+  (``<stage>_kernels``: theta, claim, argmax, repair, sseg);
+* ``call``: a postprocess wrapper on chip_smoke.py's postprocess cases
+  (theta claim at K = 64 and 100; the claim scan on the K = 100 case's
+  planes in the K-minor layout; argmax and repair at K = 64, the repair
+  with the case's dirty tiles; sseg on chip_smoke.py's [256, 512, 19]
+  logits): the CUDA-event ms of a call as chip_smoke.py times it, the
+  host's ms to enqueue it, and the profiler's device ms a launch.
 
 The card's name and power limit come with every line.
 """
@@ -28,9 +31,20 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import statistics
 import sys
 import time
+
+
+# the postprocess kernels' names (csrc/postproc_v3.cu, csrc/claim_scan.cu)
+POSTPROC_KERNELS = ("theta", "claim", "argmax", "repair", "sseg")
+
+
+def _short(kernel):
+    """A kernel's name and template arguments from the profiler's key."""
+    found = re.search(r"(\w+_kernel(<[^>]*>)?)", kernel)
+    return found.group(1) if found else kernel[:60]
 
 
 def stage_times(cs, torch, dev, card, label):
@@ -64,8 +78,13 @@ def stage_times(cs, torch, dev, card, label):
             for o in outs[path]:
                 cs._post(o, pcfg, size)
             torch.cuda.synchronize()
-        claim = [(t, n) for kern, (t, n) in
-                 cs._device_time_by_kernel(prof).items() if "claim" in kern]
+        by_kernel = cs._device_time_by_kernel(prof)
+        claim = [(t, n) for kern, (t, n) in by_kernel.items()
+                 if "claim" in kern]
+        res[name + "_kernels"] = {
+            _short(kern): [t / len(frames), n / len(frames)]
+            for kern, (t, n) in by_kernel.items()
+            if any(part in kern for part in POSTPROC_KERNELS)}
         if claim:
             t_sum, n_sum = map(sum, zip(*claim))
             res[name + "_claim_device_ms_per_frame"] = t_sum / len(frames)
@@ -80,13 +99,32 @@ def call_costs(cs, torch, dev, card, label):
 
     calls = {}
     for k in (64, 100):
-        m, labels, valid, is_thing, slots, _ = cs.postproc_case(
+        m, labels, valid, is_thing, slots, small = cs.postproc_case(
             dev, k, 256, 512, seed=k, n_valid=cs.PP_VALID)
         th = plain.theta(m, valid, 0.4)
         calls[f"claim_hopper_K{k}"] = (
             lambda m=m, th=th, labels=labels, is_thing=is_thing, valid=valid,
             slots=slots: hv3.claim_hopper(m, th, labels, is_thing, valid,
                                           0.03, slots=slots))
+        if k == 64:
+            keep, owner = plain.claim(m, th, labels, is_thing, valid, 0.03)
+            kept = torch.where(is_thing, keep, valid)
+            m1, areas = plain.argmax(m, owner, kept, is_thing)
+            removed = torch.zeros_like(kept)
+            removed[list(small)] = True
+            dirty = ((areas > 0) & removed[None]).any(-1)
+            calls["argmax_hopper_K64"] = (
+                lambda m=m, owner=owner, kept=kept, is_thing=is_thing:
+                hv3.argmax_hopper(m, owner, kept, is_thing))
+            calls["repair_hopper_K64"] = (
+                lambda m=m, owner=owner, m1=m1, kept=kept & ~removed,
+                is_thing=is_thing, dirty=dirty, areas=areas:
+                hv3.repair_hopper(m, owner, m1, kept, is_thing, dirty,
+                                  areas))
+    h, w, c = cs.SSEG_SHAPE
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((h, w, c), generator=g, device=dev) * 3
+    calls["sseg_hopper"] = lambda: hv3.sseg_hopper(x)
     planes = plain.upsample_slots(m) >= th
     hwk = planes.permute(1, 2, 0).contiguous().permute(2, 0, 1)
     calls["claim_scan_hopper_K100_kminor"] = (

@@ -51,6 +51,9 @@ from slotvps_tpu_torch.ops.deform_conv import (deform_conv2d,
 from slotvps_tpu_torch.ops.slot_attention import slot_attention
 from slotvps_tpu_torch.utils.precision import setup_precision
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the repository root's script)
+
 
 @pytest.fixture
 def cuda_device():
@@ -552,7 +555,8 @@ def test_slot_attention_tiles_and_batch(cuda_device, n_slots, n_pix):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 512, 19), (12, 20, 19), (7, 33, 3)])
+@pytest.mark.parametrize("shape", [(256, 512, 19), (12, 20, 19), (7, 33, 3),
+                                   (45, 70, 19), (4, 12, 21), (5, 8, 1)])
 def test_sseg_kernel_matches_plain(cuda_device, shape):
     h, w, c = shape
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -610,7 +614,8 @@ def _postproc_case(dev, k, h, w, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(24, 16, 24), (100, 40, 70),
-                                   (64, 256, 512)])
+                                   (64, 256, 512), (64, 41, 70),
+                                   (48, 45, 70)])
 def test_postproc_kernels_match_plain(cuda_device, shape):
     k, h, w = shape
     m, labels, valid, is_thing = _postproc_case(cuda_device, k, h, w)
@@ -730,7 +735,7 @@ def test_postproc_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(24, 16, 24), (100, 40, 70),
-                                   (100, 256, 512)])
+                                   (100, 256, 512), (64, 41, 70)])
 def test_k_minor_postproc_kernels_match_plain(cuda_device, shape):
     """theta, claim and argmax-areas on K-minor masks against their plain
     versions (and the v3 kernels on the same masks slot-major): each
@@ -871,7 +876,24 @@ def test_claim_kernels_on_the_edge_cases(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(13, 8, 32), (64, 64, 128)])
+@pytest.mark.parametrize("name", list(chip_smoke.ARGMAX_CASES))
+def test_argmax_kernels_on_the_edge_cases(cuda_device, name):
+    """chip_smoke.py's edge cases of the argmax kernel: argmax, top2, one
+    repair and the K-minor argmax-areas, each bit-identical to its plain
+    version in one launch (hold_argmax_edge raises otherwise)."""
+    row = chip_smoke.hold_argmax_edge(cuda_device, name)
+    assert row["case"] == name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.SSEG_CASES)
+def test_sseg_kernel_on_the_edge_cases(cuda_device, shape):
+    chip_smoke.hold_sseg_edge(cuda_device, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 8, 32), (64, 64, 128),
+                                   (48, 45, 70)])
 def test_argmax_top2_and_hist_kernels_match_plain(cuda_device, shape):
     k, h, w = shape
     m, labels, valid, is_thing = _postproc_case(cuda_device, k, h, w)
