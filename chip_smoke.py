@@ -29,7 +29,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      logits with ties; slot attention at the decoder's four pixel counts,
      in bf16 and in f32 (the f32 kernel also at L = 1, 64, 65, 104, 105,
      128 and P = 1, 64, 777, 4133); argmax with its runner-up map (top2)
-     and hist at K = 64.
+     and hist at K = 64; hist's edge cases (HIST_CASES: one id
+     everywhere, random ids, runs, ids outside [0, K), K = 1 and 4096, n
+     not a multiple of 4, 37 ids) at 16 x 256 x 512 ids, bit for bit.
      The claim loops' edge cases (claim_cases): more than 32 valid things,
      K = 127, all-0 and all-1 planes, B = 2 with different numbers of
      valid things, and batches past the shared-memory geometry (the owner
@@ -119,6 +121,19 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      dcn_impl="pallas_f32" against one with the plain DCN, each step's ms
      and, in one more pallas_f32 step under the profiler, its DCN
      kernels' device ms.
+  9b. train_eval — the rest of training at full width, the same
+     configuration: utils/synthetic.overfit for 20 steps on the 800x1600
+     synthetic scene (BN calibration with its replay check, norm caps, FPN
+     gain fix, two optimizer groups; its probe fires once), with its
+     launch counts, ms a step, peak memory and the probe's confident
+     slots; then eval/hooks.run_val_eval with the trained model on a
+     2-frame 1024x2048 video of the scene written to disk, on the fused
+     postprocess: launch counts, kept things a frame, wall time and the
+     VPQ summary.
+  9c. train_cli — cli/train.py's main with --dcn_impl pallas --eval_every
+     1: one epoch of one step on a one-frame training set on disk, then
+     the hook on a 2-frame val set: the epoch's state, pred.json and
+     vpq-final.txt, and the launch counts.
   10. report  — the card line, the kernels' JSON line, and last the result
      line {"ok": true, "device": {...}}.
 
@@ -226,6 +241,9 @@ TRAIN_LEVELS = ((200, 400, 2), (100, 200, 3), (50, 100, 4), (25, 50, 6))
 TRAIN_B = 2
 TRAIN_STEPS = 5
 GT_CAPACITY = 64
+# the overfit of the train_eval phase: 20 steps, so that its probe (every
+# 20 steps from min(100, steps) on) fires once
+OVERFIT_STEPS = 20
 # one step with the f32 DCN kernel vs one with the plain DCN, same weights
 # and batch, fixed_match: both f32, the DCN's sums in another order; each
 # gradient tensor against its own max|g|, floored at 1e-6 of the largest
@@ -557,9 +575,9 @@ ARGMAX_MODES = {"0": "argmax", "1": "top2", "2": "repair"}
 
 def tiled_kernel_resources():
     """Registers, spills and static shared memory of theta, of each
-    instance of argmax (one or two rows a block; argmax, top2, repair) and
-    of sseg (one or two rows a block), from ptxas: no call sets a dynamic
-    shared-memory size."""
+    instance of argmax (one or two rows a block; argmax, top2, repair), of
+    sseg (one or two rows a block) and of hist, from ptxas: no call sets a
+    dynamic shared-memory size (hist's, at most 16 KB, needs none)."""
     from slotvps_tpu_torch.ops.cuda import postproc_v3 as pv3
 
     smem, name = {}, None
@@ -581,15 +599,18 @@ def tiled_kernel_resources():
             kern = f"sseg_kernel<{sg.group(1)}>"
         elif "theta_kernel" in name:
             kern = "theta_kernel"
+        elif "hist_kernel" in name:
+            kern = "hist_kernel"
         else:
             continue
         rows.append(dict(kernel=kern, registers=regs, spill_stores=st,
                          spill_loads=ld, stack_bytes=stack,
                          static_smem_bytes=smem.get(name)))
-    if len(rows) != 9:
+    if len(rows) != 10:
         raise AssertionError(f"ptxas reported {len(rows)} tiled postprocess "
-                             "kernel instances, not 9 (theta, argmax x 2 "
-                             "row counts x 3 modes, sseg x 2)")
+                             "and hist kernel instances, not 10 (theta, "
+                             "argmax x 2 row counts x 3 modes, sseg x 2, "
+                             "hist)")
     return rows
 
 
@@ -1032,6 +1053,65 @@ def sseg_case(h, w, c):
     x[: h // 2, : w // 3, :] = 0.25
     x[-1, -1, 0] = -float("inf")
     return x
+
+
+# hist's edge cases beside the real argmax map (phase_top2_hist's own):
+# one id everywhere (every warp on the one-atomic path), random ids (16
+# runs a thread), runs of 1-40 equal ids (warps that mix the paths), ids
+# outside [0, K) in runs, K = 1 and K = 4096, n not a multiple of 4 (nor of
+# 16), and 37 ids (one partial thread, one block)
+HIST_CASES = ("uniform", "random_ids", "runs", "out_of_range", "k1",
+              "k4096", "ragged", "tiny")
+
+
+def _id_runs(rng, n, lo, hi):
+    """n ids in runs of 1-40 equal ids drawn from [lo, hi)."""
+    lens = rng.integers(1, 41, n // 10 + 2)
+    return np.repeat(rng.integers(lo, hi, len(lens)), lens)[:n]
+
+
+def hist_case(name, n=H * W, seed=0):
+    """(flat int32 id map on the CPU, K) of hist edge case ``name`` at
+    ``n`` ids, made with numpy from ``seed``."""
+    rng = np.random.default_rng(seed + len(name))
+    k = {"k1": 1, "k4096": 4096}.get(name, 64)
+    if name == "uniform":
+        ids = np.full(n, 7)
+    elif name == "random_ids":
+        ids = rng.integers(0, k, n)
+    elif name == "out_of_range":
+        ids = _id_runs(rng, n, -3, k + 3)
+    elif name == "k1":
+        ids = _id_runs(rng, n, -1, 2)
+    elif name == "k4096":
+        ids = np.where(rng.random(n) < 0.5, rng.integers(0, k, n),
+                       _id_runs(rng, n, 0, k))
+    elif name == "ragged":
+        ids = _id_runs(rng, n - 3, 0, k)
+    elif name == "tiny":
+        ids = rng.integers(0, k, 37)
+    else:
+        ids = _id_runs(rng, n, 0, k)
+    return torch.from_numpy(ids.astype(np.int32)), k
+
+
+def hold_hist_edge(dev, name, n=H * W):
+    """hist on edge case ``name`` of HIST_CASES at ``n`` ids against its
+    plain version, bit for bit, one launch on the card.  Returns the
+    case's row."""
+    from slotvps_tpu_torch.ops import postproc_v3 as plain
+    from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
+
+    ids, k = hist_case(name, n)
+    ids = ids.to(dev)
+    _held_once(dev, "hist_hopper", f"hist {name}",
+               lambda: hv3.hist_hopper(ids, k), lambda: plain.hist(ids, k))
+    return dict(case=name, K=k, n=ids.numel())
+
+
+def hold_hist_edges(dev, n=H * W):
+    """Every case of HIST_CASES (hold_hist_edge).  Returns their rows."""
+    return [hold_hist_edge(dev, name, n) for name in HIST_CASES]
 
 
 def _removal(areas, kept):
@@ -2388,18 +2468,233 @@ def phase_train_parity(dev, init_state, batch):
                 plain_peak_mem_gib=peak_p, step_ms=step_ms)
 
 
+def _scene_clip(h, w, n_frames, seed=0, shift=16):
+    """uint8 BGR frames [1, h, w, 3] of the synthetic scene
+    (utils/synthetic.make_scene, 12 things) translating ``shift`` px a
+    frame: the frames the overfit model was trained on, at (h, w)."""
+    from slotvps_tpu_torch.utils.synthetic import make_scene
+
+    img = make_scene(h, w, n_things=12, seed=seed).img
+    return [np.roll(img, t * shift, axis=1)[None] for t in range(n_frames)]
+
+
+def _kept_things(kept):
+    """A context manager recording each InferencePipeline frame's kept
+    thing classes into ``kept`` (the hook's pipeline is internal)."""
+    import contextlib
+
+    from slotvps_tpu_torch.inference import InferencePipeline
+
+    @contextlib.contextmanager
+    def recording():
+        real = InferencePipeline.process_frame
+
+        def process_frame(self, *a, **k):
+            res = real(self, *a, **k)
+            kept.append(len(res.cls_inds))
+            return res
+        InferencePipeline.process_frame = process_frame
+        try:
+            yield
+        finally:
+            InferencePipeline.process_frame = real
+    return recording()
+
+
+def eval_config(cfg):
+    """``cfg`` (the training configuration) for the eval hook: the fused
+    postprocess (its kernels; the training configuration's reference
+    postprocess launches none) and 2-frame videos."""
+    m = cfg.model
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(m, postprocess=dataclasses.replace(
+            m.postprocess, impl="fused")),
+        eval=dataclasses.replace(cfg.eval, nframes_per_video=2))
+
+
+def phase_train_eval(dev, root, cfg=None, steps=OVERFIT_STEPS,
+                     size=(TRAIN_H, TRAIN_W), eval_size=(H, W),
+                     g_cap=GT_CAPACITY):
+    """The rest of training at full width (``train_config()``: f32, the
+    bf16 DCN kernels forward and backward): utils/synthetic.overfit for
+    ``steps`` steps on the synthetic scene at ``size`` (BN calibration,
+    norm caps, FPN gain fix, two optimizer groups; its probe fires once),
+    with its launch counts, ms a step and peak memory (the best state's
+    copy included); then eval/hooks.run_val_eval with the trained model on
+    a 2-frame video of the same scene at ``eval_size`` written to disk, on
+    the fused postprocess: its launch counts, kept things a frame, wall
+    time and VPQ summary (``g_cap`` GT slots: fixed matching needs as many
+    slots).  Returns the phase's stats."""
+    from slotvps_tpu_torch.eval.hooks import run_val_eval
+    from slotvps_tpu_torch.utils.synthetic import (make_scene, overfit,
+                                                   scene_train_batch)
+
+    cfg = cfg or train_config()
+    batch = scene_train_batch(make_scene(*size, n_things=12, seed=0),
+                              g_cap=g_cap).to(dev)
+    _reset_peak(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    model = overfit(cfg.model, batch, steps=steps, seed=0, device=dev,
+                    log_every=10)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    train_launches, peak = launch_counts(), _peak_gib(dev)
+    # a train step's forward and backward (12 DCN shapes each) and the
+    # probe's one forward
+    want = dict.fromkeys(KERNELS, 0)
+    if dev.type == "cuda":
+        want.update(deform_conv2d_hopper_bf16_f32=12 * (steps + 1),
+                    dcn_backward_hopper_bf16=12 * steps)
+    if train_launches != want:
+        raise AssertionError(f"train_eval: overfit launched "
+                             f"{train_launches}, want {want}")
+    frames = _scene_clip(*eval_size, 2)
+    ann, img_dir, truth_dir, gt_json = write_cli_dataset(root / "val",
+                                                         [frames])
+    kept = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with _kept_things(kept):
+        summary = run_val_eval(model, eval_config(cfg), str(ann),
+                               str(img_dir), str(truth_dir), str(gt_json),
+                               output_dir=str(root / "val" / "out"),
+                               max_videos=1)
+    _sync(dev)
+    eval_wall = time.perf_counter() - t0
+    eval_launches = launch_counts()
+    vpq = {k: summary[k] for k in ("vpq_all", "vpq_thing", "vpq_stuff")}
+    stats = dict(path="train_eval", steps=steps,
+                 overfit_s=wall, ms_per_overfit_step=wall * 1e3 / steps,
+                 peak_mem_gib=peak, probe=model.probe,
+                 launches={k: v for k, v in train_launches.items() if v},
+                 eval_wall_s=eval_wall,
+                 eval_launches={k: v for k, v in eval_launches.items()
+                                if v},
+                 n_kept_things=kept, vpq=vpq)
+    log("train_eval", json.dumps(stats))
+    if dev.type == "cuda" and not (
+            eval_launches["deform_conv2d_hopper_bf16_f32"] == 24
+            and all(eval_launches[k] > 0 for k in (
+                "theta_hopper", "claim_hopper", "argmax_hopper"))
+            and eval_launches["dcn_backward_hopper_bf16"] == 0):
+        raise AssertionError(f"train_eval: the hook launched "
+                             f"{eval_launches}")
+    if not ((root / "val" / "out" / "vpq-final.txt").exists()
+            and len(kept) == 2
+            and all(np.isfinite(v) for v in vpq.values())):
+        raise AssertionError("train_eval: the hook gave no VPQ summary of "
+                             "2 frames")
+    del model
+    return stats
+
+
+def write_train_dataset(root, frames):
+    """``frames`` (uint8 BGR [1, h, w, 3]) as a one-video training set on
+    disk for cli/train.py: the images and an annotation json with one car
+    (a box polygon) a frame, as tests/test_training.py writes its own."""
+    import cv2
+
+    root.mkdir(parents=True)
+    h, w = frames[0].shape[1:3]
+    images, anns = [], []
+    for fid, img in enumerate(frames, start=1):
+        name = f"v1_f{fid}_newImg8bit.png"
+        cv2.imwrite(str(root / name), img[0])
+        images.append({"id": 10000 + fid, "file_name": name, "height": h,
+                       "width": w})
+        x1, y1, x2, y2 = w // 4, h // 3, w // 2, 2 * h // 3
+        anns.append({"id": fid, "image_id": 10000 + fid, "category_id": 2,
+                     "bbox": [x1, y1, x2 - x1, y2 - y1],
+                     "area": float((x2 - x1) * (y2 - y1)),
+                     "segmentation": [[x1, y1, x2, y1, x2, y2, x1, y2]],
+                     "inst_id": 1})
+    ann = root / "ann.json"
+    ann.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": 1, "name": "person"},
+                       {"id": 2, "name": "car"}]}))
+    return ann
+
+
+def phase_train_cli(dev, root, config=None, size=(256, 512),
+                    crop=(TRAIN_H, TRAIN_W), gt_capacity=GT_CAPACITY):
+    """cli/train.py's main as a user runs it with the eval hook:
+    ``--dcn_impl pallas --eval_every 1`` for one epoch of one step on a
+    one-frame training set and a 2-frame val set (``size`` images, which
+    the data pipeline rescales to 1024x2048), ``crop`` crops; it must save
+    the epoch's state and the hook write pred.json and vpq-final.txt.
+    ``config`` (a Config) replaces the named one (CPU rehearsals)."""
+    import contextlib
+    import io
+
+    from slotvps_tpu_torch.cli import train as cli
+
+    frames = _scene_clip(*size, 2)
+    ann = write_train_dataset(root / "train", frames[:1])
+    v_ann, v_img, v_truth, v_gt = write_cli_dataset(root / "tval", [frames])
+    work = root / "work"
+    named = cli.named_config
+    if config is not None:
+        cli.named_config = lambda name: config
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main([
+                "--ann_file", str(ann), "--img_prefix", str(root / "train"),
+                "--work_dir", str(work), "--total_epochs", "1",
+                "--repeat_times", "1", "--crop", *map(str, crop),
+                "--gt_capacity", str(gt_capacity), "--log_interval", "1",
+                "--data_workers", "1",
+                "--device", str(dev), "--dcn_impl", "pallas",
+                "--eval_every", "1", "--val_ann_file", str(v_ann),
+                "--val_img_prefix", str(v_img), "--val_truth_dir",
+                str(v_truth), "--val_pan_gt_json_file", str(v_gt),
+                "--val_max_videos", "1"])
+    finally:
+        cli.named_config = named
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    text = buf.getvalue()
+    lines = [x for x in text.splitlines()
+             if x.startswith(("epoch ", "[eval]"))]
+    fired = {k: v for k, v in launches.items() if v}
+    log("train_cli", f"main(--eval_every 1, --dcn_impl pallas) for one "
+                     f"step: {wall:.1f} s (build, step, save, eval); "
+                     f"{lines}; launches {json.dumps(fired)}")
+    out = work / "val_epoch_1"
+    if not ((work / "epoch_1.pt").exists()
+            and (out / "vpq-final.txt").exists()
+            and (out / "pred.json").exists()
+            and any(x.startswith("[eval]") for x in lines)):
+        raise AssertionError("the train CLI did not save its epoch or the "
+                             f"hook wrote no VPQ: {text[-2000:]}")
+    if dev.type == "cuda" and not (
+            launches["dcn_backward_hopper_bf16"] == 12
+            and launches["deform_conv2d_hopper_bf16_f32"] == 12 + 24):
+        raise AssertionError(f"train_cli: launches {launches}, want 12 "
+                             "backward and 12 + 2 x 12 forward")
+    return dict(wall_s=wall, log=lines)
+
+
 def phase_top2_hist(dev, shape=PP_SHAPES[0], n_valid=PP_VALID, timed=True,
                     ragged=PP_RAGGED):
     """argmax with its runner-up map and hist (the postproc_v3 entries only
     tests reach) against their plain versions on the K = 64 case of the
     postprocess kernels and (untimed) the ragged case: bit-identical.
-    hist also gets torch.bincount's time.  Returns {name: row} of
+    hist also gets torch.bincount's time, and (untimed) its edge cases
+    (HIST_CASES, hold_hist_edges) at 16 h w ids.  Returns {name: row} of
     ``shape``."""
     from slotvps_tpu_torch.ops import postproc_v3 as plain
     from slotvps_tpu_torch.ops.cuda import postproc_v3 as hv3
 
     if ragged:
         phase_top2_hist(dev, ragged, n_valid, False, None)
+        edges = hold_hist_edges(dev, 16 * shape[1] * shape[2])
+        log("kernels", f"hist edge cases, each bit-identical to its plain "
+                       f"version: {json.dumps(edges)}")
     k, h, w = shape
     m, labels, valid, is_thing, slots, _ = postproc_case(
         dev, k, h, w, seed=k, n_valid=n_valid)
@@ -3318,6 +3613,16 @@ def main():
     train_stats, init_state, batch = phase_train(dev)
     torch.cuda.empty_cache()
     train32_stats = phase_train_parity(dev, init_state, batch)
+    # the rest of training: the overfit recipe and the eval hook, then the
+    # train CLI with the hook
+    torch.cuda.empty_cache()
+    scratch = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        train_eval_stats = phase_train_eval(dev, scratch / "overfit")
+        torch.cuda.empty_cache()
+        phase_train_cli(dev, scratch / "cli")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     # the postprocess kernels' numbers at the ladder branch the clip took
     k_path = statistics.mode(r.capacity for r in results)
     if k_path not in pp_rows:
@@ -3326,6 +3631,7 @@ def main():
     kernels = report(dcn_rows, bwd_rows, pp_rows[k_path], sseg_row, sa_rows,
                      serving_rows, fused_rows,
                      {"bf16": stats, "f32": stats32, "train": train_stats,
+                      "train_eval": train_eval_stats,
                       "checkpoint": ckpt_stats,
                       "fused_chain": fused_stats,
                       "train_f32": train32_stats,

@@ -14,6 +14,13 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 kernel_variants.py theta
     python3 kernel_variants.py argmax
     python3 kernel_variants.py sseg
+    python3 kernel_variants.py hist
+
+A second argument names the root of another checkout (e.g. the parent
+commit unpacked with ``git archive``): its copy of the kernel's source is
+built too, as variant "parent", and timed in the same call, so that a
+redesign is compared with the kernel it replaced on one card.  Its C
+entries must take the arguments the current ones take.
 
 Each variant is ``slotvps_tpu_torch/csrc/<kernel>.cu`` with a few text
 replacements (VARIANTS below; a replacement of three strings edits the
@@ -39,15 +46,19 @@ and K = 100 (``pp_argmax``), with the runner-up map at K = 64, the
 small-area repair with that case's dirty tiles (``pp_repair``) and the
 K-minor entry on the K-minor chain's 256x512x100 random masks
 (``pp_argmax_hwk``); ``sseg`` the semantic argmax on chip_smoke.py's
-[256, 512, 19] logits with ties.  For these two, a "wrapper" line per case
-also gives the wrapper's time as chip_smoke.py takes it (CUDA events
+[256, 512, 19] logits with ties; ``hist`` the id-map histogram on 1024x2048
+maps: the argmax map of chip_smoke.py's K = 64 postprocess case, a uniform
+map, random ids at K = 64 and at K = 4096.  For these three, a "wrapper"
+line per case also gives the wrapper's time as chip_smoke.py takes it (CUDA events
 around one call, its host prologue included), 20 wrapper calls back to
 back, and the host's ms to enqueue one call.  One JSON line per (shape, variant):
 CUDA-event ms (mean of 20 calls after 3; 10 after 2 for the backward)
 and the error relative to the plain version (the backward: of dx, doff
 and dW each; the claim loops: the entries of keep and owner that
 differ; theta: relative to max(1, |theta|); argmax and sseg: the
-entries of the maps and areas that differ).  The variants that skip work give wrong results on purpose:
+entries of the maps and areas that differ), and for the postprocess kernels
+the profiler's device ms of the kernel alone ("alone_ms").  The variants
+that skip work give wrong results on purpose:
 they tell where the time goes.
 """
 
@@ -399,13 +410,31 @@ VARIANTS["sseg"] = {
     # 16 channels a chunk (Cityscapes' 19 in two)
     "chunk16": [("constexpr int SG_CH = 20;", "constexpr int SG_CH = 16;")],
 }
+VARIANTS["hist"] = {
+    "as_is": [],
+    # no warp fast path: every thread counts its runs
+    "runs_only": [("    if (one && v >= 0) {",
+                   "    if (one && v >= 0 && K < 0) {")],
+    # the loads and the warp's match, no shared atomics (the block sums
+    # and the global atomics stay)
+    "no_shared_atomics": [
+        ("      if ((threadIdx.x & 31) == 0) atomicAdd(&hist[v], 32 * HN);",
+         "      if (K < 0) atomicAdd(&hist[v], 32 * HN);"),
+        ("          if (cur >= 0) atomicAdd(&hist[cur], cnt);",
+         "          if (cur >= 0 && K < 0) atomicAdd(&hist[cur], cnt);"),
+        ("      if (cur >= 0) atomicAdd(&hist[cur], cnt);\n    }",
+         "      if (cur >= 0 && K < 0) atomicAdd(&hist[cur], cnt);\n    }")],
+    # two 16-byte loads a thread a step (8 ids)
+    "two_loads": [("constexpr int HV = 4;", "constexpr int HV = 2;")],
+}
 # kernel variants -> the library whose entry points they load
 SOURCE = {"slot_attention": "slot_attention",
           "slot_attention_f32": "slot_attention", "deform_conv": "deform_conv",
           "dcn_backward": "deform_conv", "dcn_f32": "deform_conv",
           "dcn_backward_f32": "deform_conv", "claim_scan": "claim_scan",
           "claim": "postproc_v3", "theta": "postproc_v3",
-          "argmax": "postproc_v3", "sseg": "postproc_v3"}
+          "argmax": "postproc_v3", "sseg": "postproc_v3",
+          "hist": "postproc_v3"}
 # (B, H, W, Cin, Cout, halo) of the backward's cases: P2 and P4 of the
 # 800x1600 training crop (the reference and the current frame)
 BWD_SHAPES = ((2, 200, 400, 256, 256, 2), (2, 50, 100, 256, 256, 4))
@@ -428,16 +457,20 @@ def _ms(fn, n=20, warmup=3):
     return start.elapsed_time(end) / n
 
 
-def build(tmp: Path, kernel: str, declare) -> dict:
-    """name -> loaded library; every variant compiled at once."""
-    base = (CSRC / f"{SOURCE[kernel]}.cu").read_text()
+def build(tmp: Path, kernel: str, declare, parent: Path = None) -> dict:
+    """name -> loaded library; every variant compiled at once, and the
+    source of the checkout at ``parent`` as variant "parent"."""
+    variants = dict(VARIANTS[kernel])
+    if parent is not None:
+        variants["parent"] = parent / CSRC
     procs = {}
-    for name, reps in VARIANTS[kernel].items():
+    for name, reps in variants.items():
         var = tmp / name
         var.mkdir()
-        files = {f"{name}.cu": base}
-        files.update((h.name, h.read_text()) for h in CSRC.glob("*.cuh"))
-        for rep in reps:
+        csrc = reps if name == "parent" else CSRC
+        files = {f"{name}.cu": (csrc / f"{SOURCE[kernel]}.cu").read_text()}
+        files.update((h.name, h.read_text()) for h in csrc.glob("*.cuh"))
+        for rep in ([] if name == "parent" else reps):
             where, old, new = rep if len(rep) == 3 else (f"{name}.cu", *rep)
             if old not in files[where]:
                 raise SystemExit(f"variant {name}: {old!r} not in {where}")
@@ -761,19 +794,25 @@ def _wrapper_line(case, fn):
           flush=True)
 
 
-def _pp_variants(libs, case, call, outs, refs, zero=()):
+def _pp_variants(libs, case, call, outs, refs, zero=(), alone=False):
     """Each variant's ``call(lib)`` (one launch of a postprocess entry):
     one run on zeroed ``zero`` tensors, whose ``outs`` are held to
-    ``refs`` (the entries that differ), then the mean of 20 calls."""
+    ``refs`` (the entries that differ), then the mean of 20 calls and,
+    with ``alone``, the profiler's device ms of the kernel alone (the
+    entry's memset not counted)."""
+    import chip_smoke
+
     for name, lib in libs.items():
         for t in zero:
             t.zero_()
         call(lib)
         torch.cuda.synchronize()
         diff = sum(int((o != r).sum()) for o, r in zip(outs, refs))
-        ms = _ms(lambda lib=lib: call(lib))
-        print(json.dumps({"case": case, "variant": name, "ms": ms,
-                          "mismatches": diff}), flush=True)
+        row = {"case": case, "variant": name,
+               "ms": _ms(lambda lib=lib: call(lib)), "mismatches": diff}
+        if alone:
+            row["alone_ms"] = chip_smoke._alone_ms(lambda lib=lib: call(lib))
+        print(json.dumps(row), flush=True)
 
 
 def _checked(lib, rc, entry):
@@ -877,6 +916,41 @@ def run_sseg(libs, dev, stream):
     _wrapper_line(f"sseg_{h}x{w}x{c}", lambda: pv3.sseg_hopper(x))
 
 
+def run_hist(libs, dev, stream):
+    """hist on 1024x2048 id maps: the argmax map of chip_smoke.py's K = 64
+    postprocess case (256x512 low-res, 40 valid), a uniform map, random
+    ids at K = 64 and at K = 4096; each variant's event ms and the
+    profiler's device ms of the kernel alone, then the wrapper's line."""
+    import chip_smoke
+
+    m, labels, valid, is_thing, _, _ = chip_smoke.postproc_case(
+        dev, 64, 256, 512, seed=64, n_valid=chip_smoke.PP_VALID)
+    th = tv3.theta(m, valid, 0.4)
+    keep, owner = tv3.claim(m, th, labels, is_thing, valid, 0.03)
+    kept = torch.where(is_thing, keep, valid)
+    argmax_map, _ = tv3.argmax(m, owner, kept, is_thing)
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = argmax_map.numel()
+    cases = {"argmax_map_K64": (argmax_map, 64),
+             "uniform_K64": (torch.full((n,), 7, dtype=torch.int32,
+                                        device=dev), 64),
+             "random_K64": (torch.randint(0, 64, (n,), generator=g,
+                                          device=dev, dtype=torch.int32), 64),
+             "random_K4096": (torch.randint(0, 4096, (n,), generator=g,
+                                            device=dev, dtype=torch.int32),
+                              4096)}
+    for case, (ids, k) in cases.items():
+        ref = tv3.hist(ids, k)
+        areas = torch.empty_like(ref)
+
+        def call(lib, ids=ids, k=k, areas=areas):
+            _checked(lib, lib.pp_hist(ids.data_ptr(), ids.numel(), k,
+                                      areas.data_ptr(), stream), "pp_hist")
+        _pp_variants(libs, case, call, (areas,), (ref,), (areas,),
+                     alone=True)
+        _wrapper_line(case, lambda ids=ids, k=k: pv3.hist_hopper(ids, k))
+
+
 def main():
     kernel = sys.argv[1] if len(sys.argv) > 1 else "slot_attention"
     if kernel not in VARIANTS:
@@ -891,7 +965,7 @@ def main():
     dev = torch.device("cuda")
     mod = {"slot_attention": sa, "slot_attention_f32": sa,
            "claim_scan": cs, "claim": pv3, "theta": pv3, "argmax": pv3,
-           "sseg": pv3}.get(kernel, dc)
+           "sseg": pv3, "hist": pv3}.get(kernel, dc)
     run = {"slot_attention": run_slot_attention,
            "slot_attention_f32": lambda libs, dev, stream: run_slot_attention(
                libs, dev, stream, torch.float32),
@@ -900,9 +974,10 @@ def main():
            "dcn_backward_f32": run_dcn_backward_f32,
            "claim_scan": run_claim_scan, "claim": run_claim,
            "theta": run_theta, "argmax": run_argmax,
-           "sseg": run_sseg}[kernel]
+           "sseg": run_sseg, "hist": run_hist}[kernel]
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp), kernel, mod._declare)
+        libs = build(Path(tmp), kernel, mod._declare,
+                     Path(sys.argv[2]) if len(sys.argv) > 2 else None)
         run(libs, dev, torch.cuda.current_stream().cuda_stream)
 
 

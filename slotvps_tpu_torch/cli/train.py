@@ -10,10 +10,12 @@ with 500 warm-up iterations at ratio 1/3 and steps at epochs 8 and 11 of
 12 (reference r50_fpn_slotvps.py:195-208), over RepeatDataset(times=8)
 epochs.  The train state (the model's ``state_dict``, the optimizer's state
 and the step) is saved with ``torch.save`` each epoch and resumed with
-``--resume_from``.  The image pipeline needs ``cv2``.
+``--resume_from``.  With ``--eval_every N`` and the ``--val_*`` files, the
+val VPQ of the model being trained is taken every N epochs
+(``eval/hooks.run_val_eval``, the reference's DistEvalHook) and written
+under ``<work_dir>/val_epoch_<e>``.  The image pipeline needs ``cv2``.
 
-Not ported: ``--eval_every`` (the periodic val VPQ hook) and more than one
-device; both raise.  Training runs with ``compute_dtype="float32"``.
+One device; training runs with ``compute_dtype="float32"``.
 
 Usage:
   python -m slotvps_tpu_torch.cli.train --ann_file ... --img_prefix ... \\
@@ -63,8 +65,16 @@ def parse_args(argv=None):
                    help="batch-assembly worker threads")
     p.add_argument("--prefetch_batches", type=int, default=2,
                    help="per-worker look-ahead of assembled batches")
+    # train-time periodic eval (reference DistEvalHook,
+    # mmdet/core/evaluation/eval_hooks.py:20-83)
     p.add_argument("--eval_every", type=int, default=0,
-                   help="val VPQ every N epochs (0 = off; not ported)")
+                   help="run val VPQ every N epochs (0 = off)")
+    p.add_argument("--val_ann_file", default=None)
+    p.add_argument("--val_img_prefix", default=None)
+    p.add_argument("--val_truth_dir", default=None)
+    p.add_argument("--val_pan_gt_json_file", default=None)
+    p.add_argument("--val_max_videos", type=int, default=10,
+                   help="bound the val slice evaluated per hook firing")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (the default) raises when "
                         "CUDA is not available")
@@ -250,9 +260,6 @@ def main(argv=None):
     from slotvps_tpu_torch.utils.precision import setup_precision
 
     args = parse_args(argv)
-    if args.eval_every:
-        raise NotImplementedError("--eval_every (the periodic val VPQ hook) "
-                                  "is not ported")
     device = resolve_device(args.device)
     setup_precision()
     cfg = named_config(args.config)
@@ -323,6 +330,24 @@ def main(argv=None):
         save_train_state(os.path.join(args.work_dir,
                                       f"epoch_{epoch + 1}.pt"),
                          model, optimizer, it)
+        if (args.eval_every and (epoch + 1) % args.eval_every == 0
+                and args.val_ann_file):
+            # periodic val VPQ with the live model (reference
+            # DistEvalHook, eval_hooks.py:20-83)
+            from slotvps_tpu_torch.eval.hooks import run_val_eval
+
+            te = time.time()
+            summary = run_val_eval(
+                model, cfg, args.val_ann_file, args.val_img_prefix,
+                args.val_truth_dir, args.val_pan_gt_json_file,
+                output_dir=os.path.join(args.work_dir,
+                                        f"val_epoch_{epoch + 1}"),
+                max_videos=args.val_max_videos)
+            print(f"[eval] epoch {epoch + 1}: "
+                  f"vpq_all={summary['vpq_all']:.2f} "
+                  f"vpq_thing={summary['vpq_thing']:.2f} "
+                  f"vpq_stuff={summary['vpq_stuff']:.2f} "
+                  f"({time.time() - te:.0f}s)")
     print("done")
 
 

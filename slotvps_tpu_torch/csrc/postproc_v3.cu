@@ -77,8 +77,15 @@
 //          and visited with selects, one atomic per slot per block) took
 //          0.137 ms, top2 0.239, K-minor 0.215.
 //   hist   reads an int32 id map once (8.4 MB) and writes K counts: ~2.5 us
-//          of bytes.  The same warp-aggregated shared histogram, one global
-//          atomic per slot per block.
+//          of bytes.  A thread owns 16 contiguous ids and issues its four
+//          16-byte loads before it uses any; a warp whose 512 ids are one
+//          id makes one shared atomic, otherwise a thread one per run of
+//          equal ids; one wave of blocks, one global atomic per slot a
+//          block; the C entry zeroes the counts.  Alone at 2 MP, K = 64
+//          (kernel_variants.py hist, H100 at 700 W): an argmax map 0.0043
+//          ms, one id 0.0029, random ids 0.0050 (K = 4096: 0.0097); the
+//          earlier kernel (4 ids a thread a step, four __match_any_sync,
+//          at most 1024 blocks) took 0.0073 / 0.0038 / 0.0159 / 0.0257.
 //   repair is argmax on the dirty tiles only; clean tiles copy m1 and their
 //          area row through (typically 1-2 of 32 tiles are dirty, so the
 //          copy, 16.8 MB of traffic, ~5 us, is most of its bound).
@@ -102,6 +109,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
 
 #include "claim_loop.cuh"
 
@@ -608,43 +616,110 @@ argmax_kernel(ArgmaxArgs a) {
 }
 
 // Per-slot pixel counts of an int32 id map of n entries (ids outside
-// [0, K) are not counted): each thread reads 4 ids per step, the warp
-// aggregates equal ids (__match_any_sync) into one shared atomic, and each
-// block adds its histogram with one global atomic per slot.  The loop runs
-// the same number of steps in every thread of a block, so every lane takes
-// part in each __match_any_sync.
+// [0, K) are not counted).  A thread owns HN = 16 contiguous ids a step and
+// issues its four 16-byte loads before it uses any of them.  A warp whose
+// 512 ids are all one id makes one shared atomic; otherwise each thread
+// walks its 16 ids and makes one shared atomic per run of equal ids (an
+// id map is mostly long runs of one id).  Each block then adds its
+// histogram with one global atomic per slot it saw.  The grid is at most
+// one wave (hist_wave), so a thread takes one step at 2 MP; every thread
+// of a block runs the same number of steps, so every lane takes part in
+// the __match_all_sync.
+constexpr int HV = 4;          // 16-byte loads a thread issues at once
+constexpr int HN = 4 * HV;     // ids a thread owns a step
+constexpr int HIST_MAX_K = 4096;
+
 __global__ void __launch_bounds__(HT)
-hist_kernel(const int32_t* __restrict__ m_id, size_t n, int K,
+hist_kernel(const int32_t* __restrict__ m_id, long long n, int K,
             int32_t* __restrict__ areas) {
   extern __shared__ int hist[];
-  for (int k = threadIdx.x; k < K; k += blockDim.x) hist[k] = 0;
+  for (int k = threadIdx.x; k < K; k += HT) hist[k] = 0;
   __syncthreads();
-  const size_t step = (size_t)gridDim.x * blockDim.x * 4;
-  for (size_t base = (size_t)blockIdx.x * blockDim.x * 4; base < n;
+  const long long step = (long long)gridDim.x * HT * HN;
+  for (long long base = (long long)blockIdx.x * HT * HN; base < n;
        base += step) {
-    const size_t i = base + 4 * (size_t)threadIdx.x;
-    int ids[4];
-    if (i + 4 <= n) {
-      const int4 v = *reinterpret_cast<const int4*>(m_id + i);
-      ids[0] = v.x;
-      ids[1] = v.y;
-      ids[2] = v.z;
-      ids[3] = v.w;
+    const long long i = base + (long long)threadIdx.x * HN;
+    int ids[HN];
+    if (i + HN <= n) {
+      const int4* src = reinterpret_cast<const int4*>(m_id + i);
+      int4 v[HV];
+#pragma unroll
+      for (int j = 0; j < HV; ++j) v[j] = src[j];
+#pragma unroll
+      for (int j = 0; j < HV; ++j) {
+        ids[4 * j] = v[j].x;
+        ids[4 * j + 1] = v[j].y;
+        ids[4 * j + 2] = v[j].z;
+        ids[4 * j + 3] = v[j].w;
+      }
     } else {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) ids[c] = i + c < n ? m_id[i + c] : -1;
+      for (int c = 0; c < HN; ++c) ids[c] = i + c < n ? m_id[i + c] : -1;
     }
+    // ids outside [0, K) (and the padding past n) become -1: not counted
+    bool same = true;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int id = ids[c] >= 0 && ids[c] < K ? ids[c] : -1;
-      const unsigned peers = __match_any_sync(0xffffffffu, id);
-      if (id >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
-        atomicAdd(&hist[id], __popc(peers));
+    for (int c = 0; c < HN; ++c) {
+      ids[c] = (unsigned)ids[c] < (unsigned)K ? ids[c] : -1;
+      same = same && ids[c] == ids[0];
+    }
+    // -1 stands for "not one counted id": a warp matches on v >= 0 only
+    // when every lane holds 16 of that id
+    const int v = same ? ids[0] : -1;
+    int one;
+    __match_all_sync(0xffffffffu, v, &one);
+    if (one && v >= 0) {
+      if ((threadIdx.x & 31) == 0) atomicAdd(&hist[v], 32 * HN);
+    } else {
+      int cur = ids[0], cnt = 1;
+#pragma unroll
+      for (int c = 1; c < HN; ++c) {
+        if (ids[c] == cur) {
+          ++cnt;
+        } else {
+          if (cur >= 0) atomicAdd(&hist[cur], cnt);
+          cur = ids[c];
+          cnt = 1;
+        }
+      }
+      if (cur >= 0) atomicAdd(&hist[cur], cnt);
     }
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
+  for (int k = threadIdx.x; k < K; k += HT)
     if (hist[k]) atomicAdd(&areas[k], hist[k]);
+}
+
+// Blocks of one wave of hist_kernel on the current device (its SMs times
+// the blocks an SM holds at K = HIST_MAX_K), computed once per device.
+cudaError_t hist_wave(int* wave) {
+  constexpr int N_DEV = 64;
+  static int cache[N_DEV];
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(lock);
+  if (dev < N_DEV && cache[dev]) {
+    *wave = cache[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, hist_kernel, HT, sizeof(int) * (size_t)HIST_MAX_K);
+  if (err != cudaSuccess) return err;
+  *wave = std::max(1, sms * per_sm);
+  if (dev < N_DEV) cache[dev] = *wave;
+  return cudaSuccess;
+}
+
+// hist_kernel's grid for n ids and a wave of `wave` blocks.
+long long hist_blocks(long long n, int wave) {
+  const long long per_block = (long long)HT * HN;
+  return std::max(1LL, std::min((long long)wave,
+                                (n + per_block - 1) / per_block));
 }
 
 // The semantic map: per full-res pixel, the first channel holding the max
@@ -1007,21 +1082,21 @@ extern "C" void pp_tiled_geometry(int h, int w, int hb, int* out) {
   out[2] = h / out[0];
 }
 
-// Per-slot counts areas [K] int32 (zeroed by the caller) of an int32 id
-// map of n entries, 16-byte aligned; at most 1024 blocks, each looping.
+// Per-slot counts areas [K] int32 (zeroed here) of an int32 id map of n
+// entries, 16-byte aligned, 1 <= K <= 4096 (16 KB of shared memory a
+// block: no attribute needed); one wave of blocks at most, each looping.
 extern "C" int pp_hist(const void* m_id, long long n, int K, void* areas,
                        void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(int) * (size_t)K));
+  if (K < 1 || K > HIST_MAX_K) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err =
+      cudaMemsetAsync(areas, 0, sizeof(int32_t) * (size_t)K, s);
+  int wave = 0;
+  if (err == cudaSuccess) err = hist_wave(&wave);
   if (err != cudaSuccess) return (int)err;
-  const long long per_block = 4LL * HT;
-  const int n_blocks = (int)std::max(
-      1LL, std::min(1024LL, (n + per_block - 1) / per_block));
-  hist_kernel<<<n_blocks, HT, sizeof(int) * (size_t)K,
-                (cudaStream_t)stream>>>(static_cast<const int32_t*>(m_id),
-                                        (size_t)n, K,
-                                        static_cast<int32_t*>(areas));
+  const int blocks = (int)hist_blocks(n, wave);
+  hist_kernel<<<blocks, HT, sizeof(int) * (size_t)K, s>>>(
+      static_cast<const int32_t*>(m_id), n, K, static_cast<int32_t*>(areas));
   return (int)cudaGetLastError();
 }
 

@@ -181,6 +181,26 @@ def batch_norm_eval(x, weight, bias, mean, var, eps=1e-5):
     return x * scale + shift
 
 
+def batch_norm_train(x, weight, bias, mean, var, axes, eps=1e-5,
+                     momentum=0.1):
+    """Training-mode BN over ``axes`` (channels last); returns (y,
+    new_stats): the batch's biased statistics normalize ``x``, and the
+    running statistics ``mean`` / ``var`` move by ``momentum`` towards the
+    batch mean and the *unbiased* batch variance (``var * n / (n - 1)``,
+    n = elements per channel), as torch's train-mode BN keeps them."""
+    axes = tuple(axes)
+    bvar, bmean = torch.var_mean(x, dim=axes, correction=0)
+    shape = [1] * x.ndim
+    shape[-1] = x.shape[-1]
+    y = (x - bmean.reshape(shape)) * torch.rsqrt(bvar.reshape(shape) + eps)
+    y = y * weight.reshape(shape) + bias.reshape(shape)
+    n = x.numel() // x.shape[-1]
+    unbiased = bvar * n / max(n - 1, 1)
+    new_stats = {"mean": (1 - momentum) * mean + momentum * bmean,
+                 "var": (1 - momentum) * var + momentum * unbiased}
+    return y, new_stats
+
+
 def multi_head_attention(p: MultiheadAttention, q, k, v, num_heads):
     """torch ``nn.MultiheadAttention`` with packed in_proj.
 

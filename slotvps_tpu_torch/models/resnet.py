@@ -8,7 +8,7 @@ stage plugins and the R52 deep stem are not ported yet.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Iterator, List, Sequence
 
 import torch
 import torch.nn as nn
@@ -128,3 +128,67 @@ class ResNet(nn.Module):
 def init_resnet(gen: torch.Generator, depth: int = 50,
                 out_indices: Sequence[int] = (0, 1, 2, 3)) -> ResNet:
     return ResNet(gen, depth, out_indices)
+
+
+def iter_bns(backbone: ResNet) -> Iterator[L.FrozenBatchNorm]:
+    """The backbone's BatchNorms in forward call order (the JAX package's
+    ``_iter_bns``; ``calibrate_bn_stats`` checks the order against the
+    forward's own calls)."""
+    yield backbone.bn1
+    for si in range(backbone.num_stages):
+        for blk in getattr(backbone, f"layer{si + 1}"):
+            yield blk.bn1
+            yield blk.bn2
+            if isinstance(blk, Bottleneck):
+                yield blk.bn3
+            if blk.downsample is not None:
+                yield blk.downsample.bn
+
+
+@torch.no_grad()
+def calibrate_bn_stats(backbone: ResNet, x: torch.Tensor, eps: float = 1e-5,
+                       check: bool = True) -> ResNet:
+    """Write every backbone BN's running statistics, in place, from the
+    batch statistics of one forward pass over ``x`` [B, H, W, 3]: at each
+    site the f32 mean and *biased* variance over (B, H, W) of its input,
+    with which that site then normalizes (the JAX package's
+    ``calibrate_bn_stats`` and ``_bn_stat_collector``).
+
+    A random-init backbone under identity statistics compounds activation
+    magnitude across its BN sites (the JAX package measured ~1e22 on the
+    FPN outputs at flagship depth); this calibration is the random-init
+    analog of a pretrained checkpoint's statistics, used by
+    ``utils/synthetic.overfit`` before each step.  Runs without autograd.
+    With ``check``, the frozen forward with the written statistics must
+    reproduce the collecting forward within 1e-3 of each output's max
+    (a mis-paired statistic would not); it raises otherwise."""
+    sites = list(iter_bns(backbone))
+    stats, seen = [], []
+
+    def collect(bn, inputs, _out):
+        xf = inputs[0].float()
+        v, m = torch.var_mean(xf, dim=(0, 1, 2), correction=0)
+        stats.append((m, v))
+        seen.append(bn)
+        return L.batch_norm_eval(inputs[0], bn.weight, bn.bias, m, v, eps)
+
+    hooks = [bn.register_forward_hook(collect) for bn in sites]
+    try:
+        outs = backbone(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(seen) != len(sites) or any(a is not b
+                                      for a, b in zip(seen, sites)):
+        raise RuntimeError(f"BN calibration: the forward called "
+                           f"{len(seen)} BatchNorms, not the {len(sites)} "
+                           "of iter_bns in its order")
+    for bn, (m, v) in zip(sites, stats):
+        bn.running_mean.copy_(m)
+        bn.running_var.copy_(v)
+    if check:
+        for a, b in zip(backbone(x), outs):
+            if not bool(((a - b).abs() <= 1e-3 * b.abs().max()).all()):
+                raise RuntimeError("BN stat calibration replay mismatch "
+                                   "(pairing bug)")
+    return backbone

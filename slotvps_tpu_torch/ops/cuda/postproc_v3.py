@@ -304,7 +304,7 @@ def hist_hopper(m_id: torch.Tensor, k: int) -> torch.Tensor:
     if not 1 <= k <= 4096:
         raise ValueError(f"hist_hopper: k={k}; the kernel takes 1...4096")
     dev = m_id.device
-    areas = torch.zeros((k,), dtype=torch.int32, device=dev)
+    areas = torch.empty((k,), dtype=torch.int32, device=dev)
     lib = LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.pp_hist(m_id.data_ptr(), m_id.numel(), k, areas.data_ptr(),

@@ -921,6 +921,15 @@ def test_argmax_top2_and_hist_kernels_match_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.HIST_CASES)
+def test_hist_kernel_on_the_edge_cases(cuda_device, name):
+    """chip_smoke.py's edge cases of the hist kernel at 1024x2048 ids, each
+    bit-identical to the plain version in one launch (hold_hist_edge
+    raises otherwise)."""
+    assert chip_smoke.hold_hist_edge(cuda_device, name)["case"] == name
+
+
+@pytest.mark.cuda
 def test_claim_scan_and_hist_wrappers_reject_what_they_do_not_take(
         cuda_device):
     planes, labels, is_thing, valid = _planes(cuda_device, 1, 24, 32, 48)
@@ -947,6 +956,8 @@ def test_claim_scan_and_hist_wrappers_reject_what_they_do_not_take(
         hv3.hist_hopper(m_id.long(), 4)
     with pytest.raises(TypeError, match="aligned"):
         hv3.hist_hopper(m_id.flatten()[1:], 4)
+    with pytest.raises(ValueError, match="4096"):
+        hv3.hist_hopper(m_id, 4097)
 
 
 @pytest.mark.cuda

@@ -527,9 +527,45 @@ def test_train_state_round_trip(tmp_path):
         assert torch.equal(m1[i]["exp_avg"], m2[i]["exp_avg"])
 
 
-def test_train_cli_refuses_the_eval_hook():
+def test_train_cli_runs_the_eval_hook(tmp_path, monkeypatch):
+    """cli.train.main with --eval_every 1 on the CPU: one epoch of two
+    steps on a tiny on-disk dataset (tests/test_training.py's, one video
+    of two 64x128 frames, 128x128 crops: the pseudo-video shift pads by
+    50 px), then the val VPQ hook on
+    tests/test_eval_hooks.py's 2-frame fixture; the hook writes its
+    vpq-final.txt under work_dir/val_epoch_1.  The CLI's named config is
+    the tiny model at the fixture's frame size."""
     from slotvps_tpu_torch.cli import train as cli
 
-    with pytest.raises(NotImplementedError, match="eval_every"):
-        cli.main(["--ann_file", "a.json", "--img_prefix", ".",
-                  "--eval_every", "1", "--device", "cpu"])
+    from test_eval_hooks import _write_fixture
+    from test_torch_eval_hooks import _run_cfg
+    from test_training import _disk_dataset
+
+    (tmp_path / "train").mkdir()
+    (tmp_path / "val").mkdir()
+    _disk_dataset(tmp_path / "train", n_videos=1)
+    ann, img_prefix, truth_dir, gt_json = _write_fixture(tmp_path / "val")
+    cfg = _run_cfg(tconfig, tiny_model_cfg(config=tconfig))
+    monkeypatch.setattr(cli, "named_config", lambda name: cfg)
+    work = tmp_path / "work"
+    # one torch thread: tiny tensors, and the test runner's parallel
+    # workers oversubscribe the cores with a thread per core each
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cli.main(["--ann_file", str(tmp_path / "train" / "ann.json"),
+                  "--img_prefix", str(tmp_path / "train"),
+                  "--work_dir", str(work), "--total_epochs", "1",
+                  "--repeat_times", "1", "--crop", "128", "128",
+                  "--gt_capacity", "8", "--log_interval", "1",
+                  "--data_workers", "1", "--device", "cpu",
+                  "--eval_every", "1", "--val_ann_file", ann,
+                  "--val_img_prefix", img_prefix,
+                  "--val_truth_dir", truth_dir,
+                  "--val_pan_gt_json_file", gt_json,
+                  "--val_max_videos", "1"])
+    finally:
+        torch.set_num_threads(threads)
+    assert (work / "epoch_1.pt").exists()
+    assert (work / "val_epoch_1" / "vpq-final.txt").exists()
+    assert (work / "val_epoch_1" / "pred.json").exists()
