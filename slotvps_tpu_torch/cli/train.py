@@ -256,7 +256,8 @@ def main(argv=None):
                                                 group_shuffled_indices)
     from slotvps_tpu_torch.data.transforms import TrainAugConfig
     from slotvps_tpu_torch.models.detector import init_model
-    from slotvps_tpu_torch.training.step import make_optimizer, train_step
+    from slotvps_tpu_torch.training.step import (check_trainable,
+                                                 make_optimizer, train_step)
     from slotvps_tpu_torch.utils.precision import setup_precision
 
     args = parse_args(argv)
@@ -267,6 +268,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, semantic_head=dataclasses.replace(
                 cfg.model.semantic_head, dcn_impl=args.dcn_impl)))
+    check_trainable(cfg.model)
     os.makedirs(args.work_dir, exist_ok=True)
 
     dataset = RepeatDataset(

@@ -10,12 +10,14 @@ backbone function; here ``model.backbone`` is that choice) and
 ``decode_pair_train`` (per-stage auxiliary outputs, the reference frame's
 outputs and the normalized fine feature).
 
-Ported configuration space: the ResNet backbone without stage plugins or
-R52 stem, sine position embeddings, ``compute_dtype`` "float32" or
-"bfloat16" (parameters stay f32 and are cast to the activations' dtype),
-and ``slot_head.retriever_impl`` "jax" (plain slot attention) or "pallas"
-(the Hopper slot-attention kernel, bf16 or f32); the rest raises
-``NotImplementedError``.
+Ported configuration space: every per-frame model the JAX package builds
+— the ResNet backbone (with its DCN and GCNet stage plugins and the R52
+stem) or the Swin backbone (``swinl_fpn_slotvps``), sine or learned
+position embeddings; ``compute_dtype`` "float32" or "bfloat16" (parameters
+stay f32 and are cast to the activations' dtype), and
+``slot_head.retriever_impl`` "jax" (plain slot attention) or "pallas" (the
+Hopper slot-attention kernel, bf16 or f32).  Another dtype or Retriever
+route raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ import torch.nn as nn
 from slotvps_tpu_torch.config import ModelConfig
 from slotvps_tpu_torch.models import layers as L
 from slotvps_tpu_torch.models.fpn import init_fpn
-from slotvps_tpu_torch.models.position_encoding import sine_position_embedding
+from slotvps_tpu_torch.models.position_encoding import (
+    LearnedPositionEmbedding, sine_position_embedding)
 from slotvps_tpu_torch.models.resnet import init_resnet
 from slotvps_tpu_torch.models.semantic_head import init_semantic_head
+from slotvps_tpu_torch.models.swin import init_swin
 from slotvps_tpu_torch.models.slot_head import (apply_slot_head,
                                                 init_slot_head,
                                                 retriever_attention,
@@ -59,14 +63,7 @@ class FrameOutputs(NamedTuple):
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for configuration the port lacks."""
-    r = cfg.resnet
     unsupported = []
-    if cfg.backbone != "resnet":
-        unsupported.append(f"backbone={cfg.backbone!r}")
-    if any(r.dcn_stages) or any(r.gcb_stages) or r.r52_stem:
-        unsupported.append("ResNet stage plugins / R52 stem")
-    if cfg.pos_embedding not in ("sine", "v2"):
-        unsupported.append(f"pos_embedding={cfg.pos_embedding!r}")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         unsupported.append(f"compute_dtype={cfg.compute_dtype!r}")
     if cfg.slot_head.retriever_impl not in ("jax", "pallas"):
@@ -82,8 +79,16 @@ class Detector(nn.Module):
         check_supported(cfg)
         d = cfg.slot_head.dh_dim
         out_ch = cfg.semantic_head.out_channels
-        self.backbone = init_resnet(gen, cfg.resnet.depth,
-                                    cfg.resnet.out_indices)
+        if cfg.backbone == "resnet":
+            r = cfg.resnet
+            self.backbone = init_resnet(
+                gen, r.depth, r.out_indices, dcn_stages=r.dcn_stages,
+                gcb_stages=r.gcb_stages, gcb_ratio=r.gcb_ratio,
+                r52_stem=r.r52_stem)
+        elif cfg.backbone == "swin":
+            self.backbone = init_swin(gen, cfg.swin)
+        else:
+            raise ValueError(f"backbone={cfg.backbone!r}")
         self.fpn = init_fpn(gen, cfg.fpn_in_channels(), cfg.fpn.out_channels)
         self.semantic_head = init_semantic_head(gen, cfg.semantic_head)
         self.slot_head = init_slot_head(gen, cfg.slot_head)
@@ -97,6 +102,9 @@ class Detector(nn.Module):
         self.feat_bn = L.FrozenBatchNorm(d)
         with torch.no_grad():
             self.fg_bn.weight.fill_(0.1)  # reference init (vps_capsule:129)
+        self.pos_embed = (LearnedPositionEmbedding(gen,
+                                                   cfg.pos_hidden_dim // 2)
+                          if cfg.pos_embedding in ("learned", "v3") else None)
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig,
@@ -127,8 +135,11 @@ def extract_features(model: Detector, cfg: ModelConfig,
                          fcn_output=fcn_output.float())
 
 
-def _position_embeddings(cfg: ModelConfig,
+def _position_embeddings(model: Detector, cfg: ModelConfig,
                          feat_trans: Sequence[torch.Tensor]):
+    if model.pos_embed is not None:
+        return [model.pos_embed(f.shape[1], f.shape[2], dtype=f.dtype)
+                for f in feat_trans]
     return [sine_position_embedding(f.shape[1], f.shape[2],
                                     num_pos_feats=cfg.pos_hidden_dim // 2,
                                     dtype=f.dtype, device=f.device)
@@ -140,8 +151,8 @@ def decode_pair(model: Detector, cfg: ModelConfig,
                 cur_feats: FrameFeatures) -> FrameOutputs:
     """Joint two-frame slot decode + final mask logits for the current frame
     (vps_temporal_slots.py:270-308 + generate_final_outputs :144-160)."""
-    pos = _position_embeddings(cfg, cur_feats.feat_trans)
-    ref_pos = _position_embeddings(cfg, ref_feats.feat_trans)
+    pos = _position_embeddings(model, cfg, cur_feats.feat_trans)
+    ref_pos = _position_embeddings(model, cfg, ref_feats.feat_trans)
     retriever_fn = (retriever_attention_pallas
                     if cfg.slot_head.retriever_impl == "pallas"
                     else retriever_attention)
@@ -179,8 +190,8 @@ def decode_pair_train(model: Detector, cfg: ModelConfig,
     [B, L, C], mask logits [B, L, h, w])] for every stage but the last,
     extras {"ref": the reference frame's FrameOutputs, "fine_feat": the
     normalized finest decoder feature [B, h, w, D] f32})."""
-    pos = _position_embeddings(cfg, cur_feats.feat_trans)
-    ref_pos = _position_embeddings(cfg, ref_feats.feat_trans)
+    pos = _position_embeddings(model, cfg, cur_feats.feat_trans)
+    ref_pos = _position_embeddings(model, cfg, ref_feats.feat_trans)
     all_logits, all_embeds, all_feats = apply_slot_head(
         model.slot_head, cfg.slot_head,
         features=[list(ref_feats.feat_trans), list(cur_feats.feat_trans)],

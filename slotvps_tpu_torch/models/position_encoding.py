@@ -1,12 +1,14 @@
-"""Sine position embedding (counterpart of
-``slotvps_tpu/models/position_encoding.py`` ``sine_position_embedding``;
-reference ``PositionEmbeddingSine`` with ``normalize=True``)."""
+"""Position embeddings (counterpart of
+``slotvps_tpu/models/position_encoding.py``): the sine embedding
+(reference ``PositionEmbeddingSine`` with ``normalize=True``) and the
+learned 50-bin row/column embedding (``PositionEmbeddingLearned``)."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn as nn
 
 
 def sine_position_embedding(h: int, w: int, num_pos_feats: int = 128,
@@ -37,3 +39,27 @@ def sine_position_embedding(h: int, w: int, num_pos_feats: int = 128,
                          torch.cos(pos_y[:, :, 1::2])), dim=3
                         ).reshape(h, w, num_pos_feats)
     return torch.cat((pos_y, pos_x), dim=-1).to(dtype)
+
+
+class LearnedPositionEmbedding(nn.Module):
+    """``PositionEmbeddingLearned`` (reference :309-333): one table of
+    ``num_bins`` rows per axis, uniform init from ``gen``."""
+
+    def __init__(self, gen: torch.Generator, num_pos_feats: int = 128,
+                 num_bins: int = 50):
+        super().__init__()
+        shape = (num_bins, num_pos_feats)
+        self.row_embed = nn.Parameter(torch.rand(shape, generator=gen))
+        self.col_embed = nn.Parameter(torch.rand(shape, generator=gen))
+
+    def forward(self, h: int, w: int, dtype=torch.float32) -> torch.Tensor:
+        """[H, W, 2*num_pos_feats]: column features then row features
+        (reference cat([x_emb, y_emb])).  A level taller or wider than the
+        table raises, where the JAX package's broadcast fails."""
+        bins, d = self.col_embed.shape
+        if h > bins or w > bins:
+            raise ValueError(f"learned position embedding: a {h}x{w} level "
+                             f"exceeds the table's {bins} bins per axis")
+        x_emb = self.col_embed[:w][None].expand(h, w, d)
+        y_emb = self.row_embed[:h][:, None].expand(h, w, d)
+        return torch.cat([x_emb, y_emb], dim=-1).to(dtype)

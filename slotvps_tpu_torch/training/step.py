@@ -132,6 +132,20 @@ def make_optimizer(model: torch.nn.Module, lr=1e-4,
                  clip_norm=clip_norm)
 
 
+def check_trainable(cfg: ModelConfig):
+    """Raise NotImplementedError for a model configuration whose training
+    the port lacks: bf16 compute, and the Swin backbone (the item "Swin
+    training" of ROADMAP.md, Queue 1: the train step with Swin, stochastic
+    depth, ``overfit`` with Swin)."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError("training is ported for compute_dtype="
+                                  f"'float32', not {cfg.compute_dtype!r}")
+    if cfg.backbone == "swin":
+        raise NotImplementedError(
+            "training with backbone='swin' is not ported yet (ROADMAP.md, "
+            "Queue 1: Swin training)")
+
+
 def loss_fn(model: Detector, cfg: ModelConfig, batch: TrainBatch,
             loss_pano_weight: float = 0.5,
             fixed_match: bool = False) -> Tuple[torch.Tensor, Dict]:
@@ -139,9 +153,7 @@ def loss_fn(model: Detector, cfg: ModelConfig, batch: TrainBatch,
     order.  Without ``fixed_match`` every matching of the step (current
     frame, reference frame, each auxiliary stage; each sample) is solved in
     one host round trip."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("training is ported for compute_dtype="
-                                  f"'float32', not {cfg.compute_dtype!r}")
+    check_trainable(cfg)
     # forward both frames jointly (same path as inference)
     both = torch.cat([batch.ref_img, batch.img], dim=0)
     feats = model.backbone(both)

@@ -126,6 +126,49 @@ def convert_torchvision_resnet(sd: Mapping, depth: int = 50) -> Dict:
     return out
 
 
+def convert_swin(sd: Mapping, cfg) -> Dict:
+    """Reference SwinTransformer state dict -> the backbone subtree
+    (``cfg`` a SwinConfig).  Key layout of
+    mmdet/models/backbones/swin_transformer.py: ``patch_embed.{proj,
+    norm}``, ``layers.{s}.blocks.{b}.{norm1, attn.qkv, attn.proj,
+    attn.relative_position_bias_table, norm2, mlp.fc1, mlp.fc2}``,
+    ``layers.{s}.downsample.{reduction, norm}``, the out norms ``norm{i}``.
+    ``attn.relative_position_index`` is a derived buffer: the port
+    recomputes it and does not read it."""
+    out: Dict = {
+        "patch_embed": {
+            "proj": _conv(sd, "patch_embed.proj"),
+            "norm": (_norm(sd, "patch_embed.norm")
+                     if "patch_embed.norm.weight" in sd else None),
+        },
+    }
+    for si, depth in enumerate(cfg.depths):
+        blocks = []
+        for bi in range(depth):
+            pre = f"layers.{si}.blocks.{bi}"
+            blocks.append({
+                "norm1": _norm(sd, f"{pre}.norm1"),
+                "qkv": _linear(sd, f"{pre}.attn.qkv"),
+                "proj": _linear(sd, f"{pre}.attn.proj"),
+                "rel_pos_bias": _arr(
+                    sd[f"{pre}.attn.relative_position_bias_table"]),
+                "norm2": _norm(sd, f"{pre}.norm2"),
+                "fc1": _linear(sd, f"{pre}.mlp.fc1"),
+                "fc2": _linear(sd, f"{pre}.mlp.fc2"),
+            })
+        stage: Dict = {"blocks": blocks}
+        if f"layers.{si}.downsample.reduction.weight" in sd:
+            stage["downsample"] = {
+                "reduction": _linear(
+                    sd, f"layers.{si}.downsample.reduction", bias=False),
+                "norm": _norm(sd, f"layers.{si}.downsample.norm"),
+            }
+        out[f"stage{si}"] = stage
+    for i in cfg.out_indices:
+        out[f"out_norm{i}"] = _norm(sd, f"norm{i}")
+    return out
+
+
 def _retriever(sd, pre):
     return {
         "to_q": _linear(sd, f"{pre}.to_q"),
@@ -143,14 +186,15 @@ def convert_slotvps_checkpoint(sd: Mapping, cfg) -> Dict:
     package's parameter tree, numpy leaves.  ``cfg`` is a ModelConfig; the
     key layout follows mmdet/models/detectors/{vps_temporal_slots,
     vps_capsule, dynamic_mask_head, simple_track_head}.py."""
-    if cfg.backbone == "swin":
-        raise NotImplementedError("not ported yet: backbone='swin' (the "
-                                  "Swin-L converter comes with Swin-L)")
     im = "image_model"
     params: Dict = {}
     bb_sd = {k[len(f"{im}.backbone."):]: v for k, v in sd.items()
              if k.startswith(f"{im}.backbone.")}
-    params["backbone"] = convert_torchvision_resnet(bb_sd, cfg.resnet.depth)
+    if cfg.backbone == "swin":
+        params["backbone"] = convert_swin(bb_sd, cfg.swin)
+    else:
+        params["backbone"] = convert_torchvision_resnet(bb_sd,
+                                                        cfg.resnet.depth)
     n_lat = len(cfg.fpn_in_channels())
     params["fpn"] = {
         "lateral": [_conv(sd, f"{im}.neck.lateral_convs.{i}.conv")

@@ -6,7 +6,8 @@ JAX tree): conv HWIO -> OIHW, linear ``[in, out]`` -> ``[out, in]``, MHA
 packed ``in_proj`` ``[d, 3d]`` -> ``in_proj_weight`` ``[3d, d]``.  Leaf
 names map as ``w -> weight``, ``b -> bias``, ``scale -> weight``,
 ``mean -> running_mean``, ``var -> running_var``; dict keys and list
-indices join with dots, which is the port's module path by construction.
+indices join with dots, which is the port's module path by construction;
+a ``None`` leaf (a module the configuration leaves out) has no entry.
 
 Every JAX leaf is consumed exactly once and every parameter and buffer of
 the port's model is filled exactly once; anything else raises.
@@ -26,6 +27,9 @@ _LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias",
 
 
 def _flatten(tree, prefix=()) -> Iterator[Tuple[tuple, np.ndarray]]:
+    if tree is None:
+        # an absent module (Swin's patch_embed.norm without patch_norm)
+        return
     if isinstance(tree, Mapping):
         for k, v in tree.items():
             yield from _flatten(v, prefix + (str(k),))

@@ -158,9 +158,22 @@ def test_convert_torchvision_resnet_matches_jax(depth):
 
 
 def test_swin_checkpoint_raises():
+    """A Swin checkpoint converts (``convert_swin``, held leaf for leaf
+    against the JAX converter in tests/test_torch_swin.py); one that lacks
+    the Swin backbone's keys raises on the first missing key, as the JAX
+    converter does."""
     cfg = dataclasses.replace(tconfig.ModelConfig(), backbone="swin")
-    with pytest.raises(NotImplementedError, match="swin"):
-        tckpt.convert_slotvps_checkpoint({}, cfg)
+    jcfg = dataclasses.replace(jconfig.ModelConfig(), backbone="swin")
+    for convert, c in ((tckpt.convert_slotvps_checkpoint, cfg),
+                       (jckpt.convert_slotvps_checkpoint, jcfg)):
+        with pytest.raises(KeyError, match="patch_embed.proj.weight"):
+            convert({}, c)
+    sd = {"patch_embed.proj.weight": np.ones((8, 3, 4, 4), np.float32),
+          "patch_embed.proj.bias": np.zeros(8, np.float32)}
+    scfg = tconfig.SwinConfig(depths=(), num_heads=(), out_indices=())
+    tree = tckpt.convert_swin(sd, scfg)
+    assert tree["patch_embed"]["norm"] is None
+    assert tree["patch_embed"]["proj"]["w"].shape == (4, 4, 3, 8)
 
 
 def test_save_load_checkpoint_round_trip(tmp_path):

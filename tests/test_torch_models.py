@@ -197,15 +197,20 @@ def test_track_head(pair):
 def test_unported_configuration_raises():
     cfg = tiny_model_cfg(config=tconfig)
     for bad in (dataclasses.replace(cfg, compute_dtype="float16"),
-                dataclasses.replace(cfg, backbone="swin"),
-                dataclasses.replace(cfg, pos_embedding="learned"),
-                dataclasses.replace(cfg, resnet=dataclasses.replace(
-                    cfg.resnet, r52_stem=True)),
                 # no such Retriever route
                 dataclasses.replace(cfg, slot_head=dataclasses.replace(
                     cfg.slot_head, retriever_impl="cuda"))):
         with pytest.raises(NotImplementedError):
             tdet.check_supported(bad)
+    # every model the JAX package builds is ported: the Swin backbone, the
+    # learned position embedding, the R52 stem and the stage plugins
+    for good in (dataclasses.replace(cfg, backbone="swin"),
+                 dataclasses.replace(cfg, pos_embedding="learned"),
+                 dataclasses.replace(cfg, resnet=dataclasses.replace(
+                     cfg.resnet, depth=50, r52_stem=True,
+                     dcn_stages=(False, True, True, True),
+                     gcb_stages=(False, True, True, True)))):
+        tdet.check_supported(good)
     # the tuned stack's dtype and the kernel's Retriever route, which takes
     # bf16 and f32, are ported
     for dtype in ("bfloat16", "float32"):
