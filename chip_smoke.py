@@ -153,6 +153,26 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      plugins on stages 2-4: one f32 1024x2048 frame after
      calibrate_bn_stats, outputs finite, the semantic head's 12 f32 DCN
      launches and the fused postprocess kernels counted.
+  8d. multi   — BatchedVideoPipeline at B = 2 over every visible card (a
+     replica of the model and one video a card; with one card two
+     replicas on cuda:0, each on its own stream, and a line saying that
+     the cross-card path was not run), in the bf16 tuned stack and in f32:
+     each video equal to its streaming run bit for bit, the launches of a
+     decoder call a replica and step, ms per lockstep step beside the
+     one-card batched step.
+  9d. ddp     — a world-1 process group (init_distributed on localhost,
+     NCCL): one data-parallel train step (train_step with the group) of
+     the R50 training model against the plain step from the same state
+     and batch: loss terms, all-reduced gradients and the parameters after
+     the update (DDP_* tolerances; a second plain step shows what the
+     card's own reductions move), then a few steps of each in turns for
+     their ms.  The group is destroyed after.
+  9e. swin_train — swinl_fpn_slotvps at full width in the training
+     configuration at 800x1600, batch 1: 3 train_steps (exactly 12
+     forward and 12 backward bf16 DCN launches a step, nothing else),
+     finite losses and gradients, ms a step, peak memory, the DCN kernels'
+     device ms under the profiler; then 3 steps of utils/synthetic.overfit
+     with Swin-L at 512x1024, finite losses.
   10. report  — the card line, the kernels' JSON line, and last the result
      line {"ok": true, "device": {...}}.
 
@@ -272,6 +292,24 @@ OVERFIT_STEPS = 20
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_GRAD_FLOOR = 1e-6
+# swin_train: Swin-L's train steps at the training crop, then its overfit
+# for a few steps at a smaller crop
+SWIN_TRAIN_STEPS = 3
+SWIN_OVERFIT_STEPS = 3
+SWIN_OVERFIT_SIZE = (512, 1024)
+# ddp: the data-parallel step in a world of one against the plain step from
+# the same state; the same kernels on the same inputs and an all-reduce
+# over one rank, so equal up to what two plain steps differ by (the
+# card's nondeterministic reductions, printed): each gradient tensor within
+# DDP_GRAD_RTOL of its own max|g| (floored at TRAIN_GRAD_FLOOR of the
+# largest), each loss term within DDP_LOSS_RTOL, and each parameter after
+# the update within 2 * lr (Adam's first update is lr * g / (|g| + eps): a
+# gradient entry near 0 whose sign differs moves its parameter by up to
+# 2 * lr)
+DDP_GRAD_RTOL = 1e-5
+DDP_LOSS_RTOL = 1e-6
+DDP_LR = 1e-4
+DDP_STEPS = 3
 SRC = "slotvps_tpu_torch/csrc/"
 PV3 = "slotvps_tpu/ops/pallas/postproc_v3.py"
 PFU = "slotvps_tpu/ops/pallas/postproc_fused.py"
@@ -2507,14 +2545,14 @@ def phase_plugins(dev, h=H, w=W):
     return stats
 
 
-def train_config():
-    """The JAX package's training configuration (bench.py _trained_setup):
-    the --tuned model in f32 with the bf16 DCN route, full-res semantic
-    logits and the plain Retriever."""
+def train_config(name="r50_fpn_slotvps"):
+    """The JAX package's training configuration (bench.py _trained_setup)
+    of the named model: the --tuned model in f32 with the bf16 DCN route,
+    full-res semantic logits and the plain Retriever."""
     from slotvps_tpu_torch.cli.test_eval_vpq import tune_config
     from slotvps_tpu_torch.config import named_config
 
-    cfg = tune_config(named_config("r50_fpn_slotvps"))
+    cfg = tune_config(named_config(name))
     m = cfg.model
     return dataclasses.replace(cfg, model=dataclasses.replace(
         m, compute_dtype="float32",
@@ -2872,6 +2910,292 @@ def phase_train_eval(dev, root, cfg=None, steps=OVERFIT_STEPS,
                              "2 frames")
     del model
     return stats
+
+
+def phase_swin_train(dev, card, cfg=None, steps=SWIN_TRAIN_STEPS,
+                     size=(TRAIN_H, TRAIN_W), overfit_steps=SWIN_OVERFIT_STEPS,
+                     overfit_size=SWIN_OVERFIT_SIZE):
+    """swinl_fpn_slotvps trained at full width (Swin-L: embed 192, depths
+    (2, 2, 18, 2), heads (6, 12, 24, 48), window 7) in the training
+    configuration (f32, the bf16 DCN kernels forward and backward): seeded
+    weights (:func:`train_model`), ``steps`` train_steps on the synthetic
+    scene at ``size`` (batch 1, GT_CAPACITY GT slots) with their launch
+    counts (exactly the train route's 12 forward and 12 backward DCN
+    launches a step), ms a step, peak memory, finite losses and gradients,
+    and the DCN kernels' device ms in one more step under the profiler;
+    then utils/synthetic.overfit with Swin-L (no BN calibration: the
+    backbone has no BatchNorm) for ``overfit_steps`` steps at
+    ``overfit_size``: finite losses, its launches, each train step's ms
+    and the whole call's wall (the model's init included).  Returns the
+    phase's stats."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slotvps_tpu_torch.training import step as tstep
+    from slotvps_tpu_torch.utils.profiler import (count_params,
+                                                  params_to_string)
+    from slotvps_tpu_torch.utils.synthetic import (make_scene, overfit,
+                                                   scene_train_batch)
+
+    cfg = cfg or train_config("swinl_fpn_slotvps")
+    model = train_model(cfg, dev)
+    batch = scene_train_batch(make_scene(*size, n_things=12, seed=0),
+                              g_cap=GT_CAPACITY).to(dev)
+    opt = tstep.make_optimizer(model)
+    log("swin_train", f"swinl_fpn_slotvps f32, dcn_impl 'pallas' (bf16), "
+                      f"{size[0]}x{size[1]}, batch 1, {GT_CAPACITY} GT "
+                      f"slots; Model Params : "
+                      f"{params_to_string(count_params(model))}; {card}")
+
+    def dcn_want(n):
+        want = dict.fromkeys(KERNELS, 0)
+        if dev.type == "cuda":
+            want.update(deform_conv2d_hopper_bf16_f32=12 * n,
+                        dcn_backward_hopper_bf16=12 * n)
+        return want
+
+    _reset_peak(dev)
+    reset_counts()
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        metrics = tstep.train_step(model, opt, batch, cfg.model)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        m = {k: float(v) for k, v in metrics.items()}
+        finite = _finite([p.grad for p in model.parameters()
+                          if p.grad is not None])
+        log("swin_train", f"step {i}: {times[-1]:.1f} ms, grads finite "
+                          f"{finite}, " + json.dumps(m))
+        if not (finite and all(np.isfinite(v) for v in m.values())):
+            raise AssertionError(f"swin_train step {i}: non-finite loss "
+                                 "or gradient")
+    launches, peak = launch_counts(), _peak_gib(dev)
+    if launches != dcn_want(steps):
+        raise AssertionError(f"swin_train: launches {launches} in {steps} "
+                             f"steps, want {dcn_want(steps)}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _sync(dev)
+        t0 = time.perf_counter()
+        tstep.train_step(model, opt, batch, cfg.model)
+        _sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = _device_time_by_kernel(prof)
+    busy = sum(ms for ms, _ in by_name.values())
+    dcn_ms = {}
+    for name, (ms, _) in by_name.items():
+        hit = re.search(r"dcn_\w+_kernel", name)
+        if hit:
+            dcn_ms[hit.group(0)] = dcn_ms.get(hit.group(0), 0.0) + ms
+    del model, opt, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    small = scene_train_batch(make_scene(*overfit_size, n_things=12,
+                                         seed=0), g_cap=GT_CAPACITY)
+    losses, step_ms, real_step = [], [], tstep.train_step
+
+    def recording_step(*args, **kwargs):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = real_step(*args, **kwargs)
+        losses.append(float(out["loss_total"]))
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tstep.train_step = recording_step
+    try:
+        _reset_peak(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        overfit(cfg.model, small, steps=overfit_steps, seed=0, device=dev)
+        _sync(dev)
+        of_wall = time.perf_counter() - t0
+    finally:
+        tstep.train_step = real_step
+    of_launches, of_peak = launch_counts(), _peak_gib(dev)
+    if not (len(losses) == overfit_steps
+            and all(np.isfinite(v) for v in losses)):
+        raise AssertionError(f"swin_train: overfit losses {losses}")
+    if of_launches != dcn_want(overfit_steps):
+        raise AssertionError(f"swin_train: overfit launched {of_launches}, "
+                             f"want {dcn_want(overfit_steps)}")
+    stats = dict(path="swin_train", card=card, steps=steps,
+                 step_ms=times,
+                 steady_ms_per_step=statistics.median(times[1:] or times),
+                 peak_mem_gib=peak, launches=_nonzero(launches),
+                 profiler_device_ms=busy, profiler_wall_ms=wall,
+                 busy_share=busy / wall if wall else 0.0,
+                 dcn_device_ms=dcn_ms,
+                 dcn_device_ms_total=sum(dcn_ms.values()),
+                 overfit=dict(size=list(overfit_size), steps=overfit_steps,
+                              loss_total=losses, step_ms=step_ms,
+                              steady_ms_per_step=statistics.median(
+                                  step_ms[1:] or step_ms),
+                              wall_s=of_wall,
+                              peak_mem_gib=of_peak,
+                              launches=_nonzero(of_launches)))
+    log("swin_train", json.dumps(stats))
+    return stats
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _max_diff(a, b):
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               for k in a)
+
+
+def phase_ddp(dev, init_state, batch, cfg=None, steps=DDP_STEPS):
+    """The data-parallel train step (``train_step`` with a process group:
+    the semantic count and the gradients all-reduced in buckets, the
+    metrics averaged) in a world of one process (``init_distributed`` on
+    localhost, NCCL on the card), against the plain step from the same
+    state and batch (``init_state``, ``batch``: the train phase's, R50 at
+    800x1600): the loss terms, the all-reduced (and clipped) gradients and
+    the parameters after the update (the DDP_* rule), launches equal; a
+    second plain step gives what the card's own reductions move, printed
+    with a flag per quantity for bit equality.  Then ``steps`` steps of
+    each, in turns, for their ms.  The group is destroyed after."""
+    import torch.distributed as dist
+
+    from slotvps_tpu_torch.parallel.env import init_distributed
+    from slotvps_tpu_torch.training.step import make_optimizer, train_step
+
+    cfg = cfg or train_config()
+    model = train_model(cfg, dev)
+    init_distributed(f"tcp://localhost:{_free_port()}", num_processes=1,
+                     process_id=0, device=dev.type)
+    try:
+        world = dist.group.WORLD
+
+        def one(group):
+            model.load_state_dict(init_state)
+            opt = make_optimizer(model, lr=DDP_LR)
+            reset_counts()
+            m = train_step(model, opt, batch, cfg.model, group=group)
+            _sync(dev)
+            return (m, _grads(model),
+                    {n: p.detach().clone()
+                     for n, p in model.named_parameters()}, launch_counts())
+
+        plain, plain2, ddp = one(None), one(None), one(world)
+        diffs = {}
+        for name, (a, b) in (("plain_vs_plain", (plain, plain2)),
+                             ("ddp_vs_plain", (ddp, plain))):
+            diffs[name] = dict(
+                metrics_max_abs=_max_diff(a[0], b[0]),
+                grads_max_abs=_max_diff(a[1], b[1]),
+                params_max_abs=_max_diff(a[2], b[2]),
+                bit_equal={q: all(torch.equal(x[k], y[k]) for k in x)
+                           for q, x, y in (("metrics", a[0], b[0]),
+                                           ("grads", a[1], b[1]),
+                                           ("params", a[2], b[2]))})
+        m_ddp, g_ddp, p_ddp, l_ddp = ddp
+        m_ref, g_ref, p_ref, l_ref = plain
+        if l_ddp != l_ref or set(g_ddp) != set(g_ref):
+            raise AssertionError(f"ddp: launches {_nonzero(l_ddp)} / "
+                                 f"{_nonzero(l_ref)} or gradient sets "
+                                 "differ")
+        for k, v in m_ref.items():
+            if not abs(float(m_ddp[k]) - float(v)) <= \
+                    DDP_LOSS_RTOL * abs(float(v)):
+                raise AssertionError(f"ddp: {k} {float(m_ddp[k])} vs "
+                                     f"{float(v)}")
+        floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max())
+                                       for g in g_ref.values())
+        for k, g in g_ref.items():
+            err = float((g_ddp[k] - g).abs().max())
+            if not err <= DDP_GRAD_RTOL * max(float(g.abs().max()), floor):
+                raise AssertionError(f"ddp: gradient {k} off by {err}")
+        for k, p in p_ref.items():
+            err = float((p_ddp[k] - p).abs().max())
+            if not err <= 2 * DDP_LR:
+                raise AssertionError(f"ddp: parameter {k} off by {err}")
+        # the cost of the group: steps of each in turns, one optimizer
+        model.load_state_dict(init_state)
+        opt = make_optimizer(model, lr=DDP_LR)
+        ms = {"plain": [], "ddp": []}
+        for i in range(2 * steps):
+            kind = ("plain", "ddp", "ddp", "plain")[i % 4]
+            _sync(dev)
+            t0 = time.perf_counter()
+            train_step(model, opt, batch, cfg.model,
+                       group=world if kind == "ddp" else None)
+            _sync(dev)
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    stats = dict(path="ddp", world_size=1,
+                 backend="nccl" if dev.type == "cuda" else "gloo",
+                 launches=_nonzero(l_ddp), step_ms=ms,
+                 median_ms={k: statistics.median(v) for k, v in ms.items()},
+                 **diffs)
+    log("ddp", json.dumps(stats))
+    del model
+    return stats
+
+
+def phase_multi(dev, card, model, cfg, cfg32, videos, streams,
+                one_card_ms=None):
+    """BatchedVideoPipeline at B = 2 over every visible card, a replica of
+    the model and one video each; with one card over [cuda:0, cuda:0] (two
+    replicas on one card, each on its own stream).  In the bf16 --tuned
+    stack (``cfg``: ``videos``, their streaming results ``streams``) and
+    in f32 (``cfg32``, the videos' first 2 frames): each video equal to its
+    streaming run bit for bit; launches per replica, i.e. the decoder's
+    slot-attention launches twice one video's (expected_launches with a
+    decoder call a replica and step); ms per lockstep step of a second run
+    beside the one-card batched step (``one_card_ms``).  Returns the
+    stats."""
+    from slotvps_tpu_torch.inference import BatchedVideoPipeline
+
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n_cards >= 2:
+        devices = [torch.device("cuda", i) for i in range(n_cards)]
+    else:
+        devices = [dev, dev]
+        log("multi", f"{n_cards} card visible: the cross-card path (a "
+                     "replica a card) was not run; two replicas on "
+                     f"{dev}")
+    size = videos[0][0].shape[1:3]
+    out = dict(cards=n_cards, card=card, one_card_ms_per_step=one_card_ms)
+    for label, c, vids, refs in (
+            ("bf16", cfg, videos, streams),
+            ("f32", cfg32, [v[:2] for v in videos], None)):
+        if refs is None:
+            refs = [phase_slice_results(model, c, v) for v in vids]
+        t_len = len(vids[0])
+        pipe = BatchedVideoPipeline(model, c, len(vids), image_size=size,
+                                    devices=devices)
+        res, launches, wall, peak = _run_counted(
+            dev, lambda: pipe.run_videos(vids))
+        _check_launches(f"multi_{label}", launches, expected_launches(
+            c, [r for v in res for r in v], steps=t_len * pipe.n_devices))
+        for v, (got, ref) in enumerate(zip(res, refs)):
+            for t, (a, b) in enumerate(zip(ref, got)):
+                diff = _same_results(a, b)
+                if diff:
+                    raise AssertionError(
+                        f"multi {label} video {v} frame {t} differs from "
+                        f"streaming in {diff}")
+        _, _, wall2, _ = _run_counted(dev, lambda: pipe.run_videos(vids))
+        out[label] = dict(n_devices=pipe.n_devices,
+                          devices=[str(d) for d in devices[:pipe.n_devices]],
+                          launches=_nonzero(launches), first_run_s=wall,
+                          ms_per_step=wall2 / t_len * 1e3,
+                          frames_per_s=len(vids) * t_len / wall2,
+                          peak_mem_gib=peak)
+        log("multi", f"[{label}] n_devices {pipe.n_devices}: == streaming "
+                     "bit for bit; " + json.dumps(out[label]))
+    return out
 
 
 def write_train_dataset(root, frames):
@@ -3891,6 +4215,10 @@ def main():
         model, cfg, frames_b[:N_SERVE])]
     batched_stats = phase_batched_tuned(
         dev, model, cfg, [frames[:N_SERVE], frames_b[:N_SERVE]], streams)
+    # the batched pipeline over every visible card (two replicas on one)
+    phase_multi(dev, card, model, cfg, cfg32,
+                [frames[:N_SERVE], frames_b[:N_SERVE]], streams,
+                batched_stats["ms_per_step"])
     scan_stats = phase_scan(dev, model, cfg, frames[:N_SERVE],
                             results[:N_SERVE])
     del model
@@ -3907,6 +4235,9 @@ def main():
     train_stats, init_state, batch = phase_train(dev)
     torch.cuda.empty_cache()
     train32_stats = phase_train_parity(dev, init_state, batch)
+    # the data-parallel step in a world of one against the plain step
+    torch.cuda.empty_cache()
+    phase_ddp(dev, init_state, batch)
     # the rest of training: the overfit recipe and the eval hook, then the
     # train CLI with the hook
     torch.cuda.empty_cache()
@@ -3917,6 +4248,9 @@ def main():
         phase_train_cli(dev, scratch / "cli")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    # Swin-L training: the train step at the training crop, then overfit
+    torch.cuda.empty_cache()
+    phase_swin_train(dev, card)
     # the postprocess kernels' numbers at the ladder branch the clip took
     k_path = statistics.mode(r.capacity for r in results)
     if k_path not in pp_rows:

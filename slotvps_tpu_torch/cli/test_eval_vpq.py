@@ -94,9 +94,11 @@ def parse_args(argv=None):
                         "nframes_span_test chunks (raises otherwise); gives "
                         "the streaming results")
     p.add_argument("--batch_videos", type=int, default=0,
-                   help="run frame t of N videos as one batch through the "
-                        "backbone and decoder with BatchedVideoPipeline (one "
-                        "card); the last group is padded with copies of its "
+                   help="run frame t of N videos in lockstep with "
+                        "BatchedVideoPipeline over every visible card (the "
+                        "largest divisor of N that fits: a replica of the "
+                        "model a card, N / cards videos each); the last "
+                        "group is padded with copies of its "
                         "last video whose results are dropped; needs the "
                         "same chunk alignment as --scan; gives the "
                         "streaming results wherever batch N gives the "
@@ -198,6 +200,17 @@ def video_chunks(dataset, cfg, batch_videos=0):
             items = []
 
 
+def visible_devices(model) -> list:
+    """Every visible card when the model lies on one (the JAX CLI's
+    ``jax.devices()``), the model's device first; else the model's
+    device."""
+    dev = next(model.parameters()).device
+    if dev.type != "cuda":
+        return [dev]
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev] + [c for c in cards if c != dev]
+
+
 def run_batched(model, cfg, bsz, chunks, sizes, emit):
     """Groups of ``bsz`` videos through :class:`BatchedVideoPipeline`; the
     tail group is padded with copies of its last video, whose results are
@@ -213,9 +226,10 @@ def run_batched(model, cfg, bsz, chunks, sizes, emit):
             metas.append(metas[-1])
         if pipeline is None:
             pipeline = BatchedVideoPipeline(model, cfg, bsz,
+                                            devices=visible_devices(model),
                                             **sizes(metas[0][0]))
-            print(f"batched inference: {bsz} videos a step on "
-                  f"{pipeline.n_devices} device")
+            print(f"batched inference: {bsz} videos a step, "
+                  f"n_devices {pipeline.n_devices}")
         tg = time.time()
         res = pipeline.run_videos(videos)
         dt = time.time() - tg

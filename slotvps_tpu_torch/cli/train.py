@@ -14,12 +14,23 @@ and the step) is saved with ``torch.save`` each epoch and resumed with
 val VPQ of the model being trained is taken every N epochs
 (``eval/hooks.run_val_eval``, the reference's DistEvalHook) and written
 under ``<work_dir>/val_epoch_<e>``.  The image pipeline needs ``cv2``.
+Training runs with ``compute_dtype="float32"``, with either backbone
+(``--config swinl_fpn_slotvps`` trains Swin-L).
 
-One device; training runs with ``compute_dtype="float32"``.
+Data parallel under a launcher (torchrun, SLURM, Open MPI;
+``parallel/env.init_distributed``): one process a card, a step's batch is
+``--batch_per_device`` times the processes, as the JAX package's mesh over
+every device.  Each process builds the step's whole batch, as one process
+would, and keeps its rows (``parallel/mesh.batch_rows``), so the crops a
+step trains on do not depend on the number of processes; the gradients are
+averaged over the processes (``training/step.train_step`` with the
+group).  Process 0 alone logs, writes the train state and runs the eval
+hook; the others wait at a barrier.
 
 Usage:
   python -m slotvps_tpu_torch.cli.train --ann_file ... --img_prefix ... \\
       --seg_prefix ... --work_dir work_dirs/run1 [--device cuda]
+  torchrun --nproc_per_node N -m slotvps_tpu_torch.cli.train ...
 """
 
 from __future__ import annotations
@@ -48,7 +59,9 @@ def parse_args(argv=None):
     p.add_argument("--resume_from", default=None)
     p.add_argument("--total_epochs", type=int, default=12)
     p.add_argument("--lr", type=float, default=1e-4)
-    p.add_argument("--batch_per_device", type=int, default=1)
+    p.add_argument("--batch_per_device", type=int, default=1,
+                   help="samples a process; a step's batch is this times "
+                        "the processes")
     p.add_argument("--crop", type=int, nargs=2, default=(800, 1600))
     p.add_argument("--gt_capacity", type=int, default=64)
     p.add_argument("--offsets", default="0_shift_3")
@@ -249,6 +262,20 @@ def load_train_state(path, model, optimizer, device):
 
 
 def main(argv=None):
+    from slotvps_tpu_torch.parallel.env import init_distributed
+
+    args = parse_args(argv)
+    device = init_distributed(device=args.device)
+    try:
+        _train(args, device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device):
+    """The training loop; ``device`` is the process's card under a
+    launcher, None in one process."""
     from slotvps_tpu_torch.data.dataset import (CityscapesVPSDataset,
                                                 RepeatDataset)
     from slotvps_tpu_torch.data.loader import prefetch_ordered
@@ -256,12 +283,33 @@ def main(argv=None):
                                                 group_shuffled_indices)
     from slotvps_tpu_torch.data.transforms import TrainAugConfig
     from slotvps_tpu_torch.models.detector import init_model
-    from slotvps_tpu_torch.training.step import (check_trainable,
+    from slotvps_tpu_torch.parallel.env import (broadcast_state,
+                                                process_count,
+                                                process_index)
+    from slotvps_tpu_torch.parallel.mesh import batch_rows, make_mesh
+    from slotvps_tpu_torch.training.step import (TrainBatch,
+                                                 check_trainable,
                                                  make_optimizer, train_step)
     from slotvps_tpu_torch.utils.precision import setup_precision
+    from slotvps_tpu_torch.utils.profiler import (count_params,
+                                                  params_to_string)
 
-    args = parse_args(argv)
-    device = resolve_device(args.device)
+    dist = torch.distributed
+    group, mesh = None, None
+    if device is None:
+        device = resolve_device(args.device)
+    else:
+        group, mesh = dist.group.WORLD, make_mesh()
+    lead = process_index() == 0
+
+    def barrier():
+        if group is not None:
+            dist.barrier()
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+
     setup_precision()
     cfg = named_config(args.config)
     if args.dcn_impl:
@@ -269,13 +317,15 @@ def main(argv=None):
             cfg.model, semantic_head=dataclasses.replace(
                 cfg.model.semantic_head, dcn_impl=args.dcn_impl)))
     check_trainable(cfg.model)
-    os.makedirs(args.work_dir, exist_ok=True)
+    if lead:
+        os.makedirs(args.work_dir, exist_ok=True)
 
     dataset = RepeatDataset(
         CityscapesVPSDataset(args.ann_file, args.img_prefix),
         args.repeat_times)
     aug = TrainAugConfig(crop_size=tuple(args.crop))
-    batch = args.batch_per_device
+    batch = args.batch_per_device * process_count()
+    rows = batch_rows(batch, mesh)
     # aspect-ratio group sampling: each batch draws from one orientation
     # group; steps/epoch comes from the sampled order
     flags = np.tile(aspect_ratio_flags(dataset.img_infos),
@@ -283,18 +333,21 @@ def main(argv=None):
     steps_per_epoch = max(
         len(group_shuffled_indices(flags, batch,
                                    np.random.default_rng(0))) // batch, 1)
-    print(f"dataset: {len(dataset)} frames (x{args.repeat_times} repeat), "
-          f"device {device}, batch {batch}, {steps_per_epoch} steps/epoch")
+    say(f"dataset: {len(dataset)} frames (x{args.repeat_times} repeat), "
+        f"{process_count()} process(es) on {device.type}, batch {batch}, "
+        f"{steps_per_epoch} steps/epoch")
 
     model = init_model(torch.Generator().manual_seed(args.seed), cfg.model,
                        device=device)
+    say(f"Model Params : {params_to_string(count_params(model))}")
     optimizer = make_optimizer(model, lr=lr_schedule(
         args.lr, steps_per_epoch, args.total_epochs))
     start_it = 0
     if args.resume_from:
         start_it = load_train_state(args.resume_from, model, optimizer,
                                     device)
-        print(f"resumed from {args.resume_from} at iter {start_it}")
+        say(f"resumed from {args.resume_from} at iter {start_it}")
+    broadcast_state(model)
 
     it = start_it
     t0 = time.time()
@@ -317,22 +370,24 @@ def main(argv=None):
                                   num_threads=args.data_workers)
         for _ in range(s0, steps_per_epoch):
             tw = time.perf_counter()
-            hb = next(stream)
+            hb = TrainBatch(*(a[rows] for a in next(stream)))
             host_wait += time.perf_counter() - tw
-            metrics = train_step(model, optimizer, hb.to(device), cfg.model)
+            metrics = train_step(model, optimizer, hb.to(device), cfg.model,
+                                 group=group)
             it += 1
             if it % args.log_interval == 0:
                 n_it = max(it - start_it, 1)
                 dt = (time.time() - t0) / n_it
-                print(f"epoch {epoch} iter {it}: "
-                      + " ".join(f"{k}={float(v):.4f}"
-                                 for k, v in metrics.items())
-                      + f" ({dt:.2f}s/iter, host wait "
-                      + f"{host_wait / n_it:.2f}s/iter)")
-        save_train_state(os.path.join(args.work_dir,
-                                      f"epoch_{epoch + 1}.pt"),
-                         model, optimizer, it)
-        if (args.eval_every and (epoch + 1) % args.eval_every == 0
+                say(f"epoch {epoch} iter {it}: "
+                    + " ".join(f"{k}={float(v):.4f}"
+                               for k, v in metrics.items())
+                    + f" ({dt:.2f}s/iter, host wait "
+                    + f"{host_wait / n_it:.2f}s/iter)")
+        if lead:
+            save_train_state(os.path.join(args.work_dir,
+                                          f"epoch_{epoch + 1}.pt"),
+                             model, optimizer, it)
+        if (lead and args.eval_every and (epoch + 1) % args.eval_every == 0
                 and args.val_ann_file):
             # periodic val VPQ with the live model (reference
             # DistEvalHook, eval_hooks.py:20-83)
@@ -350,7 +405,9 @@ def main(argv=None):
                   f"vpq_thing={summary['vpq_thing']:.2f} "
                   f"vpq_stuff={summary['vpq_stuff']:.2f} "
                   f"({time.time() - te:.0f}s)")
-    print("done")
+        # the other processes wait for process 0's state and hook
+        barrier()
+    say("done")
 
 
 if __name__ == "__main__":

@@ -20,6 +20,8 @@ and matmuls in full f32, bf16 products reduced in f32) when they are built.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import warnings
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -106,16 +108,28 @@ class _Pipeline:
                                                   self.config.data,
                                                   self.valid_hw))
 
+    def _decode(self, ref_feats, cur_feats) -> list:
+        """decode_pair of the frame batch, as a list of decoder outputs
+        whose batch entries follow each other (one here)."""
+        return [decode_pair(self.model, self.config.model, ref_feats,
+                            cur_feats)]
+
+    def _post(self, decoded) -> List[PostprocResult]:
+        """Each batch entry's postprocess, in order."""
+        pcfg = self.config.model.postprocess
+        posts = []
+        for outs in decoded:
+            out_size = self.image_size or (4 * outs.pred_masks.shape[2],
+                                           4 * outs.pred_masks.shape[3])
+            posts += [_compact_post(postprocess_frame(
+                outs.pred_logits[i], outs.pred_masks[i], outs.embeddings[i],
+                outs.fcn_output[i], tuple(out_size), pcfg))
+                for i in range(outs.pred_logits.shape[0])]
+        return posts
+
     def _decode_post(self, ref_feats, cur_feats) -> List[PostprocResult]:
         """decode_pair, then each batch entry's postprocess."""
-        cfg = self.config.model
-        outs = decode_pair(self.model, cfg, ref_feats, cur_feats)
-        out_size = self.image_size or (4 * outs.pred_masks.shape[2],
-                                       4 * outs.pred_masks.shape[3])
-        return [_compact_post(postprocess_frame(
-            outs.pred_logits[i], outs.pred_masks[i], outs.embeddings[i],
-            outs.fcn_output[i], tuple(out_size), cfg.postprocess))
-            for i in range(outs.pred_logits.shape[0])]
+        return self._post(self._decode(ref_feats, cur_feats))
 
     def _match(self, cur_emb: np.ndarray, prev_emb: np.ndarray):
         """The track head on host embeddings (for finish_frame)."""
@@ -215,57 +229,42 @@ def run_video(pipeline: InferencePipeline,
             for t, img in enumerate(frames)]
 
 
-class BatchedVideoPipeline(_Pipeline):
-    """Lockstep batched multi-video inference (the JAX package's
-    ``BatchedVideoPipeline``, the configuration its bench measures).
+class _Replica(_Pipeline):
+    """One model copy of a :class:`BatchedVideoPipeline` and the device
+    state of its videos: on the card its own stream and two pinned upload
+    buffers.
 
-    ``extract_features`` takes frame t of the ``batch`` videos one frame at
-    a time (:meth:`_extract`); ``decode_pair`` takes them as one batch in
-    bf16 and one frame at a time in f32 (:meth:`_decode_post`); the
-    postprocess runs per video (as the JAX package loops over the batch),
-    and each video keeps its own :class:`TrackState` and goes through
-    :func:`finish_frame`, so each video's results are those of the
-    streaming :class:`InferencePipeline` on that video, bit for bit.
+    ``extract_features`` takes the replica's frames one frame at a time
+    (:meth:`_extract`); ``decode_pair`` takes them as one batch in bf16 and
+    one frame at a time in f32 (:meth:`_decode`).  Uploads go through a
+    pinned host buffer with an asynchronous copy; the two buffers
+    alternate, and a buffer is refilled only after the event recorded
+    behind its last copy has completed."""
 
-    Order of work: the upload of frame t+1 (a pinned host buffer, copied
-    with ``non_blocking=True``) is issued before step t's results are read
-    back.  Two pinned buffers alternate, and a buffer is refilled only
-    after the event recorded behind its last copy has completed.
-
-    Videos share a length and a frame shape.  One card: ``devices`` holds
-    at most one device (default: the model's); more raises
-    ``NotImplementedError`` (the multi-GPU item of ROADMAP Queue 1).
-    Builds call :func:`setup_precision`."""
-
-    def __init__(self, model: Detector, config: Config, batch: int,
-                 image_size: Optional[tuple] = None,
-                 devices: Optional[Sequence] = None,
-                 valid_hw: Optional[tuple] = None):
+    def __init__(self, model: Detector, config: Config,
+                 image_size: Optional[tuple], valid_hw: Optional[tuple]):
         super().__init__(model, config, image_size, valid_hw)
-        device = self.device
-        devices = [device] if devices is None else list(devices)
-        if len(devices) > 1:
-            raise NotImplementedError(
-                "BatchedVideoPipeline runs on one card; sharding the video "
-                "axis over several GPUs is the multi-GPU item of ROADMAP "
-                "Queue 1 (parallel/)")
-        if devices and torch.device(devices[0]) != device:
-            raise ValueError(f"devices {devices} do not hold the model "
-                             f"({device})")
-        if batch < 1:
-            raise ValueError(f"batch must be >= 1, got {batch}")
-        setup_precision()
-        self.batch = batch
-        self.n_devices = 1
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
         self._pinned: List[Optional[torch.Tensor]] = [None, None]
         self._copied: List[Optional[torch.cuda.Event]] = [None, None]
         self._uploads = 0
 
+    def on_stream(self):
+        """The context in which the replica's work is issued: its stream
+        (and card), after all work issued so far on the card's current
+        stream (the weights' copies, the caller's)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self.stream)
+
     def _extract(self, img) -> FrameFeatures:
-        """Features of frame t of every video [B, H, W, 3], taken one frame
-        at a time and concatenated: at batch B the backbone's cuDNN
-        convolutions pick other algorithms than at batch 1 and give a frame
-        other floats (in bf16 on most elements), which the calibrated
+        """Features of frame t of the replica's videos [b, H, W, 3], taken
+        one frame at a time and concatenated: at batch b the backbone's
+        cuDNN convolutions pick other algorithms than at batch 1 and give a
+        frame other floats (in bf16 on most elements), which the calibrated
         decode turns into other kept slots; at batch 1 each frame gets the
         streaming path's features."""
         extract = super()._extract
@@ -275,28 +274,28 @@ class BatchedVideoPipeline(_Pipeline):
                   for level in zip(*(f.feat_trans for f in feats))),
             torch.cat([f.fcn_output for f in feats]))
 
-    def _decode_post(self, ref_feats, cur_feats) -> List[PostprocResult]:
-        """decode_pair and each video's postprocess.  In bf16 the decoder
-        gives each frame at batch B the floats of batch 1 and runs as one
-        batch; in f32 it does not (cuBLAS picks other f32 GEMM kernels when
-        the slot projections' rows grow from K to B*K, and the decoder's
-        outputs move in their last bits), so it takes one frame at a
-        time."""
+    def _decode(self, ref_feats, cur_feats) -> list:
+        """In bf16 the decoder gives each frame at batch b the floats of
+        batch 1 and runs as one batch; in f32 it does not (cuBLAS picks
+        other f32 GEMM kernels when the slot projections' rows grow from K
+        to b*K, and the decoder's outputs move in their last bits), so it
+        takes one frame at a time."""
         if self.config.model.compute_dtype != "float32":
-            return super()._decode_post(ref_feats, cur_feats)
+            return super()._decode(ref_feats, cur_feats)
 
         def frame(f, i):
             return FrameFeatures(tuple(level[i:i + 1]
                                        for level in f.feat_trans),
                                  f.fcn_output[i:i + 1])
 
-        decode = super()._decode_post
-        return [post for i in range(cur_feats.fcn_output.shape[0])
-                for post in decode(frame(ref_feats, i), frame(cur_feats, i))]
+        decode = super()._decode
+        return [outs for i in range(cur_feats.fcn_output.shape[0])
+                for outs in decode(frame(ref_feats, i), frame(cur_feats, i))]
 
     def _upload(self, frames: Sequence[np.ndarray]) -> torch.Tensor:
-        """Frame t of every video, [B, H, W, 3], on the device.  On the
-        card through a pinned buffer with an asynchronous copy."""
+        """Frame t of the replica's videos, [b, H, W, 3], on its device.
+        On the card through a pinned buffer with an asynchronous copy on
+        the current stream (the replica's, under :meth:`on_stream`)."""
         host = torch.from_numpy(np.concatenate(frames, axis=0))
         if self.device.type != "cuda":
             return host.to(self.device)
@@ -315,6 +314,52 @@ class BatchedVideoPipeline(_Pipeline):
         self._copied[j] = event
         return dev
 
+
+class BatchedVideoPipeline(_Pipeline):
+    """Lockstep batched multi-video inference over one or more devices (the
+    JAX package's ``BatchedVideoPipeline``, the configuration its bench
+    measures).
+
+    The video axis is split over ``n_devices`` replicas of the model: the
+    largest divisor of ``batch`` that is at most ``len(devices)`` (default:
+    the model's device), as the JAX package shards it over a mesh.  Replica
+    r holds a copy of the model on ``devices[r]`` (the model itself on its
+    own device; a list may name a device twice) and videos ``[r * b, (r +
+    1) * b)``, ``b = batch / n_devices``, with its own uploads and, on the
+    card, its own stream (:class:`_Replica`).  Each step issues every
+    replica's backbone and decoder, then each replica's postprocess, then
+    the next frames' uploads, and only then reads back and tracks the step
+    before, so the cards overlap.  The postprocess runs per video, and each
+    video keeps its own :class:`TrackState` and goes through
+    :func:`finish_frame`, so each video's results are those of the
+    streaming :class:`InferencePipeline` on that video, bit for bit.
+
+    Videos share a length and a frame shape.  Builds call
+    :func:`setup_precision`."""
+
+    def __init__(self, model: Detector, config: Config, batch: int,
+                 image_size: Optional[tuple] = None,
+                 devices: Optional[Sequence] = None,
+                 valid_hw: Optional[tuple] = None):
+        super().__init__(model, config, image_size, valid_hw)
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        devices = [self.device] if devices is None else [
+            torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("devices must name at least one device")
+        setup_precision()
+        self.batch = batch
+        self.n_devices = max(d for d in range(1, len(devices) + 1)
+                             if batch % d == 0)
+        copies = {self.device: model}
+        self.replicas = []
+        for dev in devices[:self.n_devices]:
+            if dev not in copies:
+                copies[dev] = copy.deepcopy(model).to(dev)
+            self.replicas.append(_Replica(copies[dev], config, image_size,
+                                          valid_hw))
+
     @torch.inference_mode()
     def run_videos(self, videos: Sequence[Sequence[np.ndarray]]
                    ) -> List[List[FrameResult]]:
@@ -328,24 +373,45 @@ class BatchedVideoPipeline(_Pipeline):
         if t_len == 0 or any(len(v) != t_len for v in videos):
             raise ValueError("the videos of a batch must share a length "
                              "of at least one frame")
+        lb = self.batch // self.n_devices
+        reps = self.replicas
         tracks = [TrackState() for _ in range(self.batch)]
         results: List[List[FrameResult]] = [[] for _ in range(self.batch)]
 
+        def upload(t):
+            imgs = []
+            for r, rep in enumerate(reps):
+                with rep.on_stream():
+                    imgs.append(rep._upload(
+                        [v[t] for v in videos[r * lb:(r + 1) * lb]]))
+            return imgs
+
         def drain(posts):
             is_first = len(results[0]) == 0
-            for v, post in enumerate(posts):
-                results[v].append(finish_frame(post, is_first, tracks[v],
-                                               self._match, self.stuff_num))
+            for r, rep in enumerate(reps):
+                with rep.on_stream():
+                    for i, post in enumerate(posts[r]):
+                        v = r * lb + i
+                        results[v].append(finish_frame(
+                            post, is_first, tracks[v], self._match,
+                            self.stuff_num))
 
-        ref_feats, pending = None, None
-        imgs = self._upload([v[0] for v in videos])
+        refs, pending = [None] * len(reps), None
+        imgs = upload(0)
         for t in range(t_len):
-            cur_feats = self._extract(imgs)
-            posts = self._decode_post(cur_feats if t == 0 else ref_feats,
-                                      cur_feats)
+            curs, decoded = [], []
+            for rep, img, ref in zip(reps, imgs, refs):
+                with rep.on_stream():
+                    cur = rep._extract(img)
+                    decoded.append(rep._decode(cur if t == 0 else ref, cur))
+                curs.append(cur)
+            posts = []
+            for rep, dec in zip(reps, decoded):
+                with rep.on_stream():
+                    posts.append(rep._post(dec))
             if t + 1 < t_len:
-                imgs = self._upload([v[t + 1] for v in videos])
-            ref_feats = cur_feats
+                imgs = upload(t + 1)
+            refs = curs
             if pending is not None:
                 drain(pending)
             pending = posts

@@ -31,7 +31,7 @@ ignore label).
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -116,13 +116,19 @@ def init_semantic_head(gen, cfg: SemanticHeadConfig) -> SemanticHead:
 
 
 def semantic_loss(fcn_score: torch.Tensor, seg_label: torch.Tensor,
-                  cfg: SemanticHeadConfig) -> torch.Tensor:
+                  cfg: SemanticHeadConfig,
+                  count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weighted CE with ignore label (reference upsnetFPN.py:87-98).
 
-    fcn_score [B, h, w, C] logits, seg_label [B, h, w] int."""
+    fcn_score [B, h, w, C] logits, seg_label [B, h, w] int.  The summed
+    log-likelihood of the valid pixels is divided by ``count``, by default
+    their number (at least 1); a data-parallel step passes its rank's share
+    of the whole batch's count (``training/step.py``)."""
     valid = seg_label != cfg.ignore_label
     labels = torch.where(valid, seg_label, 0).long()
     logp = torch.log_softmax(fcn_score.float(), dim=-1)
     ll = torch.gather(logp, -1, labels[..., None])[..., 0]
-    loss = -(ll * valid).sum() / valid.sum().clamp_min(1)
+    if count is None:
+        count = valid.sum().clamp_min(1)
+    loss = -(ll * valid).sum() / count
     return cfg.loss_weight * loss

@@ -20,13 +20,15 @@ Window attention is plain PyTorch (matmul, softmax), as the JAX package
 computes it in XLA outside any Pallas kernel.  In bf16 the weights are cast
 per call, the bias and the mask are cast to bf16 before the add and the
 softmax runs on bf16 scores, as in the JAX package.  Stochastic depth
-(training only) is not ported.
+(timm DropPath, the JAX package's ``_drop_path``) runs when ``forward`` is
+given a ``torch.Generator``; no entry point gives one (the JAX package's
+``loss_fn`` passes no ``drop_path_key`` either).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -87,6 +89,30 @@ def shift_mask(h: int, w: int, window: int, shift: int,
     return torch.where(diff != 0, -100.0, 0.0)
 
 
+def drop_path_mask(x: torch.Tensor, rate: float,
+                   generator: torch.Generator) -> torch.Tensor:
+    """The keep mask of stochastic depth: one Bernoulli(1 - rate) draw per
+    sample, shape [B, 1, 1, 1], in ``x``'s dtype on ``x``'s device (drawn
+    on the generator's device)."""
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (u < 1.0 - rate).to(device=x.device, dtype=x.dtype)
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """Stochastic depth on the batch axis (timm DropPath, the JAX package's
+    ``_drop_path``): ``x * mask / (1 - rate)``."""
+    return x * drop_path_mask(x, rate, generator) / (1.0 - rate)
+
+
+def drop_path_rates(cfg: SwinConfig) -> List[float]:
+    """Per-block rates, rising linearly from 0 to ``drop_path_rate`` over
+    all blocks (reference swin :481-483)."""
+    total = sum(cfg.depths)
+    return [cfg.drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+
+
 class SwinBlock(nn.Module):
     def __init__(self, gen: torch.Generator, dim: int, num_heads: int,
                  window: int, mlp_ratio: float, qkv_bias: bool):
@@ -123,7 +149,9 @@ class SwinBlock(nn.Module):
         out = (attn @ v).transpose(1, 2).reshape(nw, n, c)
         return self.proj(out)
 
-    def forward(self, x, window, shift, rel_index, masks):
+    def forward(self, x, window, shift, rel_index, masks, drop=None):
+        """``drop``: None, or (rate, generator) for stochastic depth on
+        the attention and the FFN branch, one draw each, in that order."""
         b, h, w, c = x.shape
         shortcut = x
         x = self.norm1(x)
@@ -143,8 +171,14 @@ class SwinBlock(nn.Module):
                            b, hp, wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + x[:, :h, :w]
-        return x + self.fc2(L.gelu(self.fc1(self.norm2(x))))
+        x = x[:, :h, :w]
+        if drop is not None:
+            x = drop_path(x, *drop)
+        x = shortcut + x
+        ffn = self.fc2(L.gelu(self.fc1(self.norm2(x))))
+        if drop is not None:
+            ffn = drop_path(ffn, *drop)
+        return x + ffn
 
 
 class PatchMerge(nn.Module):
@@ -209,23 +243,37 @@ class SwinTransformer(nn.Module):
                                               shift, device=dev)
         return self._masks[key]
 
-    def forward(self, img: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, img: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         """``apply_swin``: img [B, H, W, 3] -> the levels of ``out_indices``
-        at strides 4/8/16/32."""
+        at strides 4/8/16/32.  ``generator``: train-time stochastic depth
+        at :func:`drop_path_rates`; None (inference) is the identity.  As
+        in the JAX package, a block of an even stage of depth >= 4 (one
+        that the JAX package scans) draws at every rate, 0 included, and
+        any other block only where its rate is > 0."""
         cfg = self.cfg
+        dpr = drop_path_rates(cfg)
+        gi = 0
         x = self.patch_embed.proj(img, stride=cfg.patch_size, padding=0)
         if self.patch_embed.norm is not None:
             x = self.patch_embed.norm(x)
         outs = []
         for si in range(len(cfg.depths)):
             stage = getattr(self, f"stage{si}")
+            depth = len(stage.blocks)
+            scanned = depth >= 4 and depth % 2 == 0
             for bi, blk in enumerate(stage.blocks):
+                drop = None
+                if generator is not None and (scanned or dpr[gi] > 0):
+                    drop = (dpr[gi], generator)
+                gi += 1
                 # odd blocks always shift, also on maps smaller than the
                 # window: the reference pads, rolls and masks
                 # (swin_transformer.py:361-404)
                 shift = 0 if bi % 2 == 0 else cfg.window_size // 2
                 x = blk(x, cfg.window_size, shift, self.rel_index,
-                        self._mask)
+                        self._mask, drop)
             if si in cfg.out_indices:
                 outs.append(getattr(self, f"out_norm{si}")(x))
             if stage.downsample is not None:

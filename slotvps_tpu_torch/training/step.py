@@ -11,16 +11,28 @@ JAX package masks them out of its optimizer); their weight and bias train.
 The step updates the model in place (the JAX step returns new parameters)
 and returns its metrics as device tensors, so it makes no host sync beyond
 the matching's one round trip (``training/losses.hungarian``).  Training is
-ported for ``compute_dtype="float32"``, with any ``dcn_impl``: "pallas"
-computes the DCN in bf16 through the backward kernel, as the JAX package
-trains.
+ported for ``compute_dtype="float32"``, with either backbone and any
+``dcn_impl``: "pallas" computes the DCN in bf16 through the backward
+kernel, as the JAX package trains.
+
+Data parallel: given a process group, ``train_step`` is one step on the
+batch that the group's ranks hold together, as the JAX package's mesh step
+is one step on the global batch.  Each rank's gradients are averaged over
+the group after ``backward`` (:func:`average_gradients`), so every rank
+takes the same update.  Every loss term but the semantic one is a mean of
+per-sample terms, which a mean of the ranks' means reproduces when the
+ranks hold equal batches; the semantic loss divides by the valid pixels of
+the whole batch, so ``loss_fn`` all-reduces that count and scales the
+rank's share by it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, \
+    Union
 
 import torch
+import torch.distributed as dist
 
 from slotvps_tpu_torch.config import ModelConfig
 from slotvps_tpu_torch.models.detector import (Detector, FrameFeatures,
@@ -133,26 +145,23 @@ def make_optimizer(model: torch.nn.Module, lr=1e-4,
 
 
 def check_trainable(cfg: ModelConfig):
-    """Raise NotImplementedError for a model configuration whose training
-    the port lacks: bf16 compute, and the Swin backbone (the item "Swin
-    training" of ROADMAP.md, Queue 1: the train step with Swin, stochastic
-    depth, ``overfit`` with Swin)."""
+    """Raise NotImplementedError for bf16 compute: the port trains in f32,
+    as every JAX entry point does."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError("training is ported for compute_dtype="
                                   f"'float32', not {cfg.compute_dtype!r}")
-    if cfg.backbone == "swin":
-        raise NotImplementedError(
-            "training with backbone='swin' is not ported yet (ROADMAP.md, "
-            "Queue 1: Swin training)")
 
 
 def loss_fn(model: Detector, cfg: ModelConfig, batch: TrainBatch,
-            loss_pano_weight: float = 0.5,
-            fixed_match: bool = False) -> Tuple[torch.Tensor, Dict]:
+            loss_pano_weight: float = 0.5, fixed_match: bool = False,
+            group: Optional[dist.ProcessGroup] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """(total loss, metrics): the JAX ``loss_fn``, term for term and in its
     order.  Without ``fixed_match`` every matching of the step (current
     frame, reference frame, each auxiliary stage; each sample) is solved in
-    one host round trip."""
+    one host round trip.  With a process ``group``, ``batch`` is this
+    rank's part of the group's batch, and the semantic term is this rank's
+    share of the whole batch's (see the module's docstring)."""
     check_trainable(cfg)
     # forward both frames jointly (same path as inference)
     both = torch.cat([batch.ref_img, batch.img], dim=0)
@@ -211,19 +220,73 @@ def loss_fn(model: Detector, cfg: ModelConfig, batch: TrainBatch,
     metrics["loss_insdis"] = torch.stack([
         insdis_loss(extras["fine_feat"][i], batch.gt_masks[i],
                     batch.gt_valid[i]) for i in range(b)]).mean()
+    sem_count = None
+    if group is not None:
+        count = (batch.gt_semantic != cfg.semantic_head.ignore_label).sum()
+        dist.all_reduce(count, group=group)
+        sem_count = count.clamp_min(1) / dist.get_world_size(group)
     metrics["loss_sem"] = loss_pano_weight * semantic_loss(
-        fcn_score[b:], batch.gt_semantic, cfg.semantic_head)
+        fcn_score[b:], batch.gt_semantic, cfg.semantic_head, sem_count)
     total = sum(metrics.values())
     metrics["loss_total"] = total
     return total, metrics
 
 
+# gradient bucket of the data-parallel step (DistributedDataParallel's
+# default bucket_cap_mb)
+BUCKET_BYTES = 25 * 2 ** 20
+
+
+def average_gradients(params: Sequence[torch.Tensor],
+                      group: dist.ProcessGroup):
+    """Replace each parameter's gradient (zeros where it got none) by its
+    mean over ``group``'s ranks: the gradients, in parameter order (the
+    same on every rank), flattened into buckets of at most BUCKET_BYTES
+    of one dtype, one ``all_reduce`` a bucket."""
+    world = dist.get_world_size(group)
+    buckets, size = [], 0
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        g = p.grad
+        n = g.numel() * g.element_size()
+        if (not buckets or size + n > BUCKET_BYTES
+                or g.dtype != buckets[-1][0].dtype):
+            buckets.append([])
+            size = 0
+        buckets[-1].append(g)
+        size += n
+    for bucket in buckets:
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=group)
+        flat /= world
+        for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
+
+
+def _mean_over_ranks(metrics: Dict, group: dist.ProcessGroup) -> Dict:
+    """The metrics averaged over the group (one all_reduce): the global
+    step's loss terms."""
+    flat = torch.stack([v.detach().float() for v in metrics.values()])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    return dict(zip(metrics, flat.unbind()))
+
+
 def train_step(model: Detector, optimizer: AdamW, batch: TrainBatch,
-               cfg: ModelConfig, fixed_match: bool = False) -> Dict:
+               cfg: ModelConfig, fixed_match: bool = False,
+               group: Optional[dist.ProcessGroup] = None) -> Dict:
     """One AdamW step on ``batch``, in place; returns the metrics (device
-    tensors, detached)."""
+    tensors, detached).  With a process ``group`` it is the data-parallel
+    step: ``batch`` is this rank's part, the gradients and the metrics are
+    averaged over the group before the update."""
     optimizer.zero_grad()
-    total, metrics = loss_fn(model, cfg, batch, fixed_match=fixed_match)
+    total, metrics = loss_fn(model, cfg, batch, fixed_match=fixed_match,
+                             group=group)
     total.backward()
+    if group is not None:
+        average_gradients([p for p in model.parameters()
+                           if p.requires_grad], group)
+        metrics = _mean_over_ranks(metrics, group)
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}

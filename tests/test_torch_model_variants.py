@@ -196,21 +196,27 @@ def test_learned_position_embedding_matches_jax():
             model.pos_embed(h, w)
 
 
-def test_trainer_refuses_swin(tmp_path):
+def test_trainer_takes_swin(tmp_path):
+    """The trainer takes the Swin backbone (the train step itself is held
+    against the JAX package in tests/test_torch_swin_train.py) and still
+    refuses bf16 compute, which no JAX entry point trains in."""
     from slotvps_tpu_torch.cli import train as train_cli
     from slotvps_tpu_torch.training.step import check_trainable, loss_fn
 
     cfg = tconfig.named_config("swinl_fpn_slotvps").model
-    with pytest.raises(NotImplementedError, match="Swin training"):
-        check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="Swin training"):
-        loss_fn(None, cfg, None)
-    with pytest.raises(NotImplementedError, match="Swin training"):
+    check_trainable(cfg)
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="float32"):
+        check_trainable(bf16)
+    with pytest.raises(NotImplementedError, match="float32"):
+        loss_fn(None, bf16, None)
+    # the CLI gets past the check to the dataset, which is missing here
+    with pytest.raises(FileNotFoundError):
         train_cli.main(["--config", "swinl_fpn_slotvps", "--device", "cpu",
                         "--work_dir", str(tmp_path / "w"), "--ann_file",
                         str(tmp_path / "none.json"), "--img_prefix",
                         str(tmp_path)])
-    assert not (tmp_path / "w").exists()
+    assert (tmp_path / "w").is_dir()
     # the ResNet configurations of the chip's plugins phase train
     check_trainable(dataclasses.replace(
         tconfig.ModelConfig(), resnet=tconfig.ResNetConfig(**PLUGINS)))

@@ -353,12 +353,36 @@ def test_overfit_two_steps_match_jax(init, scene, monkeypatch):
     np.testing.assert_allclose(loss[0], jloss[0], rtol=STEP_RTOL)
     np.testing.assert_allclose(loss[1], jloss[1], rtol=STEP2_RTOL)
 
+    want = _grouped_lr_checks(model, tcfg, state, after1[0], jafter1[0],
+                              jparams)
+    both = torch.cat([batch.ref_img, batch.img])
+    got = {k: v.clone() for k, v in model.state_dict().items()}
+    tres.calibrate_bn_stats(model.backbone, both)
+    jmodel = port_model(jparams, tcfg)
+    tres.calibrate_bn_stats(jmodel.backbone, both)
+    for n, b in model.named_buffers():
+        if not n.startswith("backbone."):
+            assert torch.equal(got[n], state[n]), n
+            continue
+        assert torch.equal(got[n], b), n
+        np.testing.assert_allclose(
+            jmodel.get_buffer(n).numpy(), want[n].numpy(), rtol=0,
+            atol=BN_STAT_TOL * float(want[n].abs().max()), err_msg=n)
+
+
+def _grouped_lr_checks(model, tcfg, state, after1, jafter1, jparams):
+    """Two overfit steps' parameters against the JAX package's, each
+    group held to its own lr (see the module's docstring): ``after1`` /
+    ``jafter1`` right after step 1's update (every entry within 2 * lr, 97 %
+    within 1e-2 * lr), ``model`` / ``jparams`` after both steps; the port's
+    parameters moved from ``state``.  Returns the JAX package's final
+    state mapped by from_jax_params."""
     heads = set(tsyn._grouped_optimizer(model, LR, HEAD_MULT).groups["head"])
     group_lr = {n: LR * (HEAD_MULT if n in heads else 1.0)
                 for n, _ in model.named_parameters()}
-    want1 = from_jax_params(jafter1[0], tcfg)
+    want1 = from_jax_params(jafter1, tcfg)
     near = {"trunk": [0, 0], "head": [0, 0]}
-    for n, got in after1[0].items():
+    for n, got in after1.items():
         d = (got - want1[n]).abs()
         assert float(d.max()) <= 2 * group_lr[n] * (1 + 1e-3), n
         g = near["head" if n in heads else "trunk"]
@@ -376,19 +400,7 @@ def test_overfit_two_steps_match_jax(init, scene, monkeypatch):
                                    err_msg=n)
         moved += int(not torch.equal(p.detach(), state[n]))
     assert moved > 0.9 * len(list(model.parameters()))
-    both = torch.cat([batch.ref_img, batch.img])
-    got = {k: v.clone() for k, v in model.state_dict().items()}
-    tres.calibrate_bn_stats(model.backbone, both)
-    jmodel = port_model(jparams, tcfg)
-    tres.calibrate_bn_stats(jmodel.backbone, both)
-    for n, b in model.named_buffers():
-        if not n.startswith("backbone."):
-            assert torch.equal(got[n], state[n]), n
-            continue
-        assert torch.equal(got[n], b), n
-        np.testing.assert_allclose(
-            jmodel.get_buffer(n).numpy(), want[n].numpy(), rtol=0,
-            atol=BN_STAT_TOL * float(want[n].abs().max()), err_msg=n)
+    return want
 
 
 def test_overfit_keeps_a_copy_of_the_best_state(init, scene, monkeypatch,

@@ -45,6 +45,18 @@ from tests.test_torch_slice import _clip, calibrated  # noqa: F401
 K, D = 8, 6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one CPU thread: its tensors are tiny, and
+    the test runner's parallel workers oversubscribe the cores when each
+    torch process spins a thread per core (the batched and CLI cases took
+    100-270 s each that way)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_pool(emb, size, started=True):
     return tj.PoolState(jnp.asarray(emb), jnp.asarray(size, jnp.int32),
                         jnp.asarray(started))
@@ -213,21 +225,39 @@ def test_batched_equals_port_streaming_bit_for_bit(calibrated):  # noqa: F811
                     (v, t, name)
 
 
-def test_batched_pipeline_is_one_card_only():
-    cfg = tiny_model_cfg("pallas_f32", tconfig)
-    model = torch.nn.Linear(1, 1)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        BatchedVideoPipeline(model, tconfig.Config(model=cfg), 2,
-                             devices=["cpu", "cpu"])
-    pipe = BatchedVideoPipeline(model, tconfig.Config(model=cfg), 2)
-    assert pipe.n_devices == 1
+@pytest.mark.parametrize("batch", [2, 3])
+def test_batched_pipeline_replicas(calibrated, batch):  # noqa: F811
+    """devices=["cpu", "cpu"]: B = 2 splits over two replicas of the model
+    (one video each), B = 3 over one (n_devices 1, the largest divisor of 3
+    that fits); each video equals its streaming run bit for bit (f32).  A
+    replica on the model's device is the model itself.  The default is the
+    model's device.  The videos must share a length."""
+    cfg, params, _ = calibrated
+    tm = tiny_model_cfg("pallas_f32", tconfig)
+    tcfg = tconfig.Config(model=tm)
+    model = port_model(params, tm)
+    clip = _clip(0, 2)
+    clips = [[np.roll(f, 24 * v, axis=2) for f in clip]
+             for v in range(batch)]
+    pipe = BatchedVideoPipeline(model, tcfg, batch, devices=["cpu", "cpu"])
+    assert pipe.n_devices == {2: 2, 3: 1}[batch]
+    assert [r.model for r in pipe.replicas] == [model] * pipe.n_devices
+    batched = pipe.run_videos(clips)
+    for v, c in enumerate(clips):
+        stream = run_video(InferencePipeline(model, tcfg), c)
+        for t, (a, b) in enumerate(zip(stream, batched[v])):
+            for name in ("sseg", "panoptic", "cls_inds", "obj_ids",
+                         "cls_prob"):
+                assert np.array_equal(getattr(a, name), getattr(b, name)), \
+                    (v, t, name)
+    assert BatchedVideoPipeline(model, tcfg, batch).n_devices == 1
     with pytest.raises(ValueError, match="share a length"):
-        pipe.run_videos([[np.zeros((1, 8, 8, 3))], []])
+        pipe.run_videos([[clip[0]]] * (batch - 1) + [[]])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_batched_extract_takes_each_frame_at_batch_1(monkeypatch, dtype):
-    """BatchedVideoPipeline._extract feeds the backbone one frame at a
+    """BatchedVideoPipeline's replica feeds the backbone one frame at a
     time: every extract_features call sees one frame, and each frame's
     features equal those of the streaming pipeline's batch-1 call bit for
     bit (at batch 2 the backbone's convolutions may sum in another order)."""
@@ -247,7 +277,8 @@ def test_batched_extract_takes_each_frame_at_batch_1(monkeypatch, dtype):
 
     monkeypatch.setattr(inf, "extract_features", counted)
     with torch.inference_mode():
-        both = BatchedVideoPipeline(model, tcfg, 2)._extract(img)
+        both = BatchedVideoPipeline(model, tcfg, 2).replicas[0]._extract(
+            img)
         assert batches == [1, 1]
         stream = InferencePipeline(model, tcfg)
         for i in range(2):
