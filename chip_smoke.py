@@ -160,6 +160,18 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      each video equal to its streaming run bit for bit, the launches of a
      decoder call a replica and step, ms per lockstep step beside the
      one-card batched step.
+  8e. tuned_vs_exact — utils/parity.tuned_vs_exact, the bf16 tuned stack
+     (the bf16 DCN, sseg and fused postprocess kernels) against the f32
+     plain stack (plain DCN, reference postprocess) on the same weights
+     and frames: the calibrated regime (doctored, 48 slots packed at the
+     keep rule) at 1024x2048 and the trained one (150 overfit steps with
+     the DCN kernels and parity's TRAINED_OVERFIT, 6 things) at 256x512,
+     2 frames each; each streaming step of the two routes with its
+     launches (none on the exact route; 12 bf16 DCN and the fused
+     postprocess kernels a tuned frame), the kept and thing counts, the
+     aggregates
+     held to TVE_BOUNDS (the JAX package's floors), the halo assertion
+     inside; wall seconds and peak memory.
   9d. ddp     — a world-1 process group (init_distributed on localhost,
      NCCL): one data-parallel train step (train_step with the group) of
      the R50 training model against the plain step from the same state
@@ -184,6 +196,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import inspect
 import json
 import pathlib
 import re
@@ -264,6 +277,26 @@ PLAIN_BF16_PAN = 0.30
 # postproc_fused.py, random-normal masks of a 1024x2048 frame, every slot
 # valid, labels 0..18, things > 10
 FUSED_SHAPE = (256, 512, 100)
+# tuned_vs_exact: utils/parity.tuned_vs_exact's calibrated regime at
+# 1024x2048, its trained regime at a reduced size (TVE_TRAIN_*: 150 overfit
+# steps at 256x512 on a 6-thing scene, the DCN kernels in training, the
+# regime's overfit options utils/parity.TRAINED_OVERFIT), each on
+# TVE_FRAMES frames; held to the JAX package's bounds for the same runs
+# (tests/test_tuned_vs_exact.py: the adversarial floors ADV_* :47-62, the
+# reduced-size trained run :112-117): min matched panoptic agreement, min
+# sseg agreement, max score drift, max share of kept segments unmatched
+# (None: not bounded) and kept segments a frame at least
+TVE_FRAMES = 2
+TVE_TRAIN_SIZE = (256, 512)
+TVE_TRAIN_STEPS = 150
+TVE_TRAIN_THINGS = 6
+TVE_BOUNDS = {
+    "calibrated": dict(pan_matched_min=0.30, sseg_min=0.97,
+                       score_drift_max=0.15, unmatched_frac_max=0.60,
+                       kept_per_frame=4),
+    "trained": dict(pan_matched_min=0.90, sseg_min=0.97,
+                    score_drift_max=0.10, unmatched_frac_max=None,
+                    kept_per_frame=4)}
 # published H100 SXM peaks at 700 W: f32 outside the tensor cores, dense
 # bf16 and TF32 on the tensor cores, HBM
 F32_FLOPS = 67e12
@@ -1897,31 +1930,15 @@ def phase_stages(model, cfg, frames, label="bf16"):
     return med
 
 
-def match_relabel(pan_a, pan_b):
-    """``pan_b``'s segment ids relabelled onto ``pan_a``'s by greedy
-    maximum pixel overlap (injective): two paths that keep the same
-    segments but rank two near-equal scores the other way agree fully."""
-    a = pan_a.astype(np.int64).ravel()
-    b = pan_b.astype(np.int64).ravel()
-    pairs, counts = np.unique(a * 256 + b, return_counts=True)
-    mapping, used = {}, set()
-    for i in np.argsort(counts)[::-1]:
-        sa, sb = int(pairs[i] // 256), int(pairs[i] % 256)
-        if sb not in mapping and sa not in used:
-            mapping[sb] = sa
-            used.add(sa)
-    lut = np.arange(256)
-    for sb, sa in mapping.items():
-        lut[sb] = sa
-    return lut[pan_b]
-
-
 def _agreement(a, b):
-    """(sseg, panoptic, panoptic with ids matched) pixel agreement."""
+    """(sseg, panoptic, panoptic with ids matched by overlap) pixel
+    agreement."""
+    from slotvps_tpu_torch.utils.parity import _match_relabel
+
     return (float((a.sseg == b.sseg).mean()),
             float((a.panoptic == b.panoptic).mean()),
-            float((a.panoptic == match_relabel(a.panoptic,
-                                               b.panoptic)).mean()))
+            float((a.panoptic == _match_relabel(a.panoptic,
+                                                b.panoptic)).mean()))
 
 
 def phase_plain(model, cfg, frames, results, results_f32, n_frames=2):
@@ -4063,6 +4080,140 @@ def phase_scan(dev, model, cfg, frames, streamed):
     return stats
 
 
+def _tve_counted(parity, frames):
+    """Wrap utils/parity.stream_frame, one streaming step of a route, so
+    that each call appends (route, launches in the call, its
+    PostprocResult) to ``frames``; the route is read from its ``cfg``
+    argument.  Returns a function that puts the original back."""
+    fn = parity.stream_frame
+    sig = inspect.signature(fn)
+
+    def call(*args, **kwargs):
+        cfg = sig.bind(*args, **kwargs).arguments["cfg"]
+        before = launch_counts()
+        out = fn(*args, **kwargs)
+        after = launch_counts()
+        route = {"float32": "exact", "bfloat16": "tuned"}[cfg.compute_dtype]
+        frames.append((route, {k: n - before[k] for k, n in after.items()
+                               if n != before[k]}, out[1]))
+        return out
+
+    parity.stream_frame = call
+    return lambda: setattr(parity, "stream_frame", fn)
+
+
+def _tve_check_launches(regime, frames, total, n_frames, num_levels):
+    """Each exact frame launched nothing; each tuned frame launched the
+    bf16 DCN 3 blocks x levels times and the fused postprocess kernels
+    once (repair n_loop times), nothing else.  Outside the frames: the
+    tuned route's reference extract of frame 0 (the bf16 DCN 3 x levels
+    times) and, in the trained regime, the overfit's kernels (the f32
+    model's bf16 DCN forward, the bf16 backward) and the offsets
+    measure's 3 x levels f32 DCN.  Returns the launches outside the
+    frames."""
+    dcn = {"deform_conv2d_hopper_bf16": 3 * num_levels}
+    inside = dict.fromkeys(total, 0)
+    for route, launched, post in frames:
+        for k, n in launched.items():
+            inside[k] += n
+        want = {}
+        if route == "tuned":
+            want = dict(dcn, sseg_hopper=1, theta_hopper=1, claim_hopper=1,
+                        argmax_hopper=1, repair_hopper=post.n_loop)
+            want = {k: n for k, n in want.items() if n}
+        if launched != want:
+            raise AssertionError(f"[tuned_vs_exact] {regime}: {route} "
+                                 f"frame launched {launched}, want {want}")
+    routes = sorted(route for route, _, _ in frames)
+    if routes != ["exact"] * n_frames + ["tuned"] * n_frames:
+        raise AssertionError(f"[tuned_vs_exact] {regime}: frames {routes}, "
+                             f"want {n_frames} a route")
+    outside = {k: n - inside[k] for k, n in total.items() if n != inside[k]}
+    want = dict(dcn)
+    if regime == "trained":
+        train = ("deform_conv2d_hopper_bf16_f32", "dcn_backward_hopper_bf16")
+        if not all(outside.get(name) for name in train):
+            raise AssertionError(f"[tuned_vs_exact] trained: the overfit "
+                                 f"launched no {train}: {outside}")
+        want.update({name: outside[name] for name in train},
+                    deform_conv2d_hopper=3 * num_levels)
+    if outside != want:
+        raise AssertionError(f"[tuned_vs_exact] {regime}: launches outside "
+                             f"the frames {outside}, want {want}")
+    return outside
+
+
+def _tve_misses(report, bounds):
+    """{aggregate: (value, bound)} of the bounds ``report`` misses."""
+    agg, n = report["aggregate"], report["n_frames"]
+    frac = agg["kept_unmatched_total"] / max(agg["n_kept_exact_total"], 1)
+    checks = [
+        ("pan_agreement_matched_min", agg["pan_agreement_matched_min"],
+         bounds["pan_matched_min"], 1),
+        ("sseg_agreement_min", agg["sseg_agreement_min"],
+         bounds["sseg_min"], 1),
+        ("max_score_drift", agg["max_score_drift"],
+         bounds["score_drift_max"], -1),
+        ("n_kept_exact_total", agg["n_kept_exact_total"],
+         bounds["kept_per_frame"] * n, 1)]
+    if bounds["unmatched_frac_max"] is not None:
+        checks.append(("kept_unmatched_share", frac,
+                       bounds["unmatched_frac_max"], -1))
+    # sign 1: a floor, -1: a ceiling
+    return {name: (value, bound) for name, value, bound, sign in checks
+            if sign * (value - bound) < 0}
+
+
+def phase_tuned_vs_exact(dev, cal_size=(H, W), n_frames=TVE_FRAMES,
+                         train_size=TVE_TRAIN_SIZE,
+                         train_steps=TVE_TRAIN_STEPS,
+                         n_things=TVE_TRAIN_THINGS):
+    """utils/parity.tuned_vs_exact on the card, both regimes: calibrated
+    at ``cal_size``, trained at ``train_size`` with the DCN kernels in
+    training (its halo assertion inside); each streaming step's launches
+    counted by route (:func:`_tve_check_launches`), the aggregates held to
+    TVE_BOUNDS.  Returns {regime: stats}."""
+    from slotvps_tpu_torch.config import named_config
+    from slotvps_tpu_torch.utils import parity
+
+    num_levels = named_config("r50_fpn_slotvps").model.semantic_head \
+        .num_levels
+    runs = {"calibrated": dict(h=cal_size[0], w=cal_size[1]),
+            "trained": dict(h=train_size[0], w=train_size[1],
+                            regime="trained", train_steps=train_steps,
+                            n_things=n_things, train_dcn_impl="pallas")}
+    out = {}
+    for regime, kw in runs.items():
+        frames = []
+        restore = _tve_counted(parity, frames)
+        try:
+            report, total, wall, peak = _run_counted(
+                dev, lambda: parity.tuned_vs_exact(
+                    n_frames=n_frames, device=dev, **kw))
+        finally:
+            restore()
+        outside = _tve_check_launches(regime, frames, total, n_frames,
+                                      num_levels)
+        pf = report["per_frame"]
+        stats = dict(regime=regime, resolution=report["resolution"],
+                     n_frames=n_frames, wall_s=wall, peak_mem_gib=peak,
+                     calib=report["calib"], aggregate=report["aggregate"],
+                     n_kept_exact=[m["n_kept_exact"] for m in pf],
+                     n_things_exact=[m["n_things_exact"] for m in pf],
+                     n_things_tuned=[m["n_things_tuned"] for m in pf],
+                     launches_outside_frames=outside,
+                     n_loop=[post.n_loop for route, _, post in frames
+                             if route == "tuned"])
+        log("tuned_vs_exact", json.dumps(stats))
+        misses = _tve_misses(report, TVE_BOUNDS[regime])
+        if misses:
+            raise AssertionError(f"[tuned_vs_exact] {regime} misses "
+                                 f"{misses} (value, bound): "
+                                 f"{report['aggregate']}")
+        out[regime] = stats
+    return out
+
+
 def _device_time_by_kernel(prof):
     by_name = {}
     for ev in prof.key_averages():
@@ -4222,6 +4373,10 @@ def main():
     scan_stats = phase_scan(dev, model, cfg, frames[:N_SERVE],
                             results[:N_SERVE])
     del model
+    torch.cuda.empty_cache()
+    # the tuned-vs-exact check: the bf16 kernel stack against the f32
+    # plain stack, calibrated and trained
+    phase_tuned_vs_exact(dev)
     torch.cuda.empty_cache()
     # the Swin-L model on the serving paths, then the ResNet plugins
     scratch = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_swin_"))

@@ -1,6 +1,6 @@
 """Train-time data transforms — the reference's released train pipeline
 (the port's copy of ``slotvps_tpu/data/transforms.py``, numpy and cv2
-only, with its own copy of ``bbox_overlaps``).
+only; ``bbox_overlaps`` is ``eval/detection.py``'s).
 
 Reference pipeline (configs/cityscapes/r50_fpn_slotvps.py:123-146):
   Resize(img_scale=(2048,1024), keep_ratio, ratio_range=(0.8,1.5)) ->
@@ -26,6 +26,8 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from slotvps_tpu_torch.eval.detection import bbox_overlaps
 
 try:
     import cv2
@@ -513,30 +515,3 @@ def apply_train_pipeline(
         ref_semantic_seg=ref_seg,
         flip=flip, scale_factor=f, crop_coords=coords,
     )
-
-
-def bbox_overlaps(bboxes1: np.ndarray, bboxes2: np.ndarray,
-                  mode: str = "iou") -> np.ndarray:
-    """IoU/IoF between [N, 4] and [M, 4] (x1, y1, x2, y2), mmdet '+1'
-    convention (reference bbox_overlaps.py:4-40)."""
-    assert mode in ("iou", "iof")
-    bboxes1 = bboxes1.astype(np.float32)
-    bboxes2 = bboxes2.astype(np.float32)
-    rows, cols = bboxes1.shape[0], bboxes2.shape[0]
-    ious = np.zeros((rows, cols), np.float32)
-    if rows * cols == 0:
-        return ious
-    area1 = (bboxes1[:, 2] - bboxes1[:, 0] + 1) * (
-        bboxes1[:, 3] - bboxes1[:, 1] + 1)
-    area2 = (bboxes2[:, 2] - bboxes2[:, 0] + 1) * (
-        bboxes2[:, 3] - bboxes2[:, 1] + 1)
-    for i in range(rows):
-        x_start = np.maximum(bboxes1[i, 0], bboxes2[:, 0])
-        y_start = np.maximum(bboxes1[i, 1], bboxes2[:, 1])
-        x_end = np.minimum(bboxes1[i, 2], bboxes2[:, 2])
-        y_end = np.minimum(bboxes1[i, 3], bboxes2[:, 3])
-        overlap = np.maximum(x_end - x_start + 1, 0) * np.maximum(
-            y_end - y_start + 1, 0)
-        union = area1[i] + area2 - overlap if mode == "iou" else area1[i]
-        ious[i] = overlap / np.maximum(union, np.finfo(np.float32).eps)
-    return ious

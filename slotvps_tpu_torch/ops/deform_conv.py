@@ -31,7 +31,9 @@ of the JAX package) and the output takes ``x.dtype``.  Autograd through
 gradient is zero on a clamped axis and on an invalid tap.
 
 :func:`offset_clamp_stats` measures how much an offset field clamps at a
-halo.  :func:`deform_conv2d_backward` is the plain version of the backward
+halo.  :func:`deform_conv2d_reference` is the float64 numpy oracle of the
+JAX package (no halo clamp, any stride, padding, dilation and mask).
+:func:`deform_conv2d_backward` is the plain version of the backward
 kernel (``slotvps_tpu/ops/pallas/deform_conv.py`` ``_dcn_bwd_kernel``, the
 Hopper kernel in ``csrc/deform_conv.cu``), at the bf16 kernel's rounding
 points.
@@ -42,6 +44,7 @@ Layouts as in the JAX package: x NHWC, offset NHWC with channels
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -240,3 +243,49 @@ def deform_conv2d_backward(x: torch.Tensor, offset: torch.Tensor,
     dx = dx_pad.reshape(b, h + 2 * pad, wp, c_in)[:, pad:pad + h,
                                                    pad:pad + w]
     return dx.to(x.dtype), doff, dw
+
+
+def deform_conv2d_reference(x, offset, weight, mask=None, stride=1,
+                            padding=1, dilation=1) -> np.ndarray:
+    """Slow float64 numpy reference (no halo clamp) for kernel parity
+    tests: the JAX package's ``deform_conv2d_reference``.  Inputs are
+    arrays (or CPU tensors) in the layouts above, ``mask`` [B, Ho, Wo,
+    kh*kw] (modulated DCN); returns [B, Ho, Wo, C_out] float64."""
+    x = np.asarray(x, np.float64)
+    offset = np.asarray(offset, np.float64)
+    weight = np.asarray(weight, np.float64)
+    if mask is not None:
+        mask = np.asarray(mask, np.float64)
+    b, h, w, c_in = x.shape
+    kh, kw, _, c_out = weight.shape
+    h_out = (h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
+    w_out = (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
+    out = np.zeros((b, h_out, w_out, c_out))
+
+    def samp(img, py, px):
+        if not (-1 < py < h and -1 < px < w):
+            return np.zeros(c_in)
+        y0, x0 = int(np.floor(py)), int(np.floor(px))
+        fy, fx = py - y0, px - x0
+        acc = np.zeros(c_in)
+        for cy, wy in ((y0, 1 - fy), (y0 + 1, fy)):
+            for cx, wx in ((x0, 1 - fx), (x0 + 1, fx)):
+                if 0 <= cy < h and 0 <= cx < w and wy * wx != 0:
+                    acc += img[cy, cx] * wy * wx
+        return acc
+
+    for bi in range(b):
+        for oy in range(h_out):
+            for ox in range(w_out):
+                for ky in range(kh):
+                    for kx in range(kw):
+                        k = ky * kw + kx
+                        py = oy * stride - padding + ky * dilation \
+                            + offset[bi, oy, ox, 2 * k]
+                        px = ox * stride - padding + kx * dilation \
+                            + offset[bi, oy, ox, 2 * k + 1]
+                        s = samp(x[bi], py, px)
+                        if mask is not None:
+                            s = s * mask[bi, oy, ox, k]
+                        out[bi, oy, ox] += s @ weight[ky, kx]
+    return out

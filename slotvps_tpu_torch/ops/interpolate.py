@@ -61,9 +61,37 @@ def interpolate_bilinear(x: torch.Tensor, size: Tuple[int, int],
     return out.to(x.dtype)
 
 
+def interpolate_nearest(x: torch.Tensor, size: Tuple[int, int]
+                        ) -> torch.Tensor:
+    """``F.interpolate(x, size, mode='nearest')`` (floor convention).
+
+    x: [..., H, W, C].
+    """
+    h_out, w_out = size
+    h_in, w_in = x.shape[-3], x.shape[-2]
+    if (h_out, w_out) == (h_in, w_in):
+        return x
+    dev = x.device
+    ys = torch.floor(torch.arange(h_out, dtype=torch.float32, device=dev)
+                     * (h_in / h_out)).long()
+    xs = torch.floor(torch.arange(w_out, dtype=torch.float32, device=dev)
+                     * (w_in / w_out)).long()
+    ys = torch.clamp_max(ys, h_in - 1)
+    xs = torch.clamp_max(xs, w_in - 1)
+    nd = x.ndim
+    return x.index_select(nd - 3, ys).index_select(nd - 2, xs)
+
+
 def upsample_x2_nearest(x: torch.Tensor) -> torch.Tensor:
     """FPN top-down x2 nearest."""
     return x.repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)
+
+
+def upsample_x2_bilinear(x: torch.Tensor, align_corners: bool = False
+                         ) -> torch.Tensor:
+    """``F.interpolate(x, scale_factor=2, mode='bilinear')``."""
+    h, w = x.shape[-3], x.shape[-2]
+    return interpolate_bilinear(x, (2 * h, 2 * w), align_corners)
 
 
 def _upsample_int_axis(x: torch.Tensor, axis: int, s: int) -> torch.Tensor:

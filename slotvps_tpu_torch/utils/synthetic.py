@@ -297,10 +297,40 @@ def _grouped_optimizer(model: torch.nn.Module, lr: float,
     return SimpleNamespace(groups=groups, zero_grad=zero_grad, step=step)
 
 
+@torch.no_grad()
+def calibrate_fg_bn(model, cfg_model, img: torch.Tensor, scale: float):
+    """Set ``fg_bn`` so that the mask logits of ``img`` decoded against
+    itself come out centred with standard deviation ``scale``: its running
+    statistics to the mean and variance of the raw slot-map products, its
+    weight to ``scale``, its bias to 0.
+
+    At the reference init (weight 0.1, identity statistics) the mask
+    logits of a random-init model have a standard deviation of ~0.006
+    (the slot embeddings meet L2-normalized features), so every sigmoid
+    mask is ~0.5 everywhere, and AdamW moves the weight by ~lr a step: too
+    slowly for a few hundred steps.  A trained checkpoint's fg_bn is sharp
+    (cf. ``utils/calibration.doctor_params``)."""
+    from slotvps_tpu_torch.models.detector import (decode_pair,
+                                                   extract_features)
+
+    bn = model.fg_bn
+    f = extract_features(model, cfg_model, img)
+    masks = decode_pair(model, cfg_model, f, f).pred_masks.float()
+    gain = bn.weight[0] * torch.rsqrt(bn.running_var[0] + 1e-5)
+    raw = (masks - (bn.bias[0] - bn.running_mean[0] * gain)) / gain
+    var, mean = torch.var_mean(raw, correction=0)
+    bn.running_mean.fill_(float(mean))
+    bn.running_var.fill_(float(var))
+    bn.weight.fill_(scale)
+    bn.bias.zero_()
+    return model
+
+
 def overfit(cfg_model, batch, steps: int = 300, lr: float = 2e-3,
             seed: int = 0, log_every: int = 0, head_lr_mult: float = 1.0,
             query_scale: float = 1.0, device="cuda",
-            state_dict: Optional[Dict[str, torch.Tensor]] = None):
+            state_dict: Optional[Dict[str, torch.Tensor]] = None,
+            fg_scale: Optional[float] = None):
     """Overfit a model on one TrainBatch; returns the model (on
     ``device``, the card unless the caller asks for the CPU) holding the
     best probed state (the JAX package's ``overfit``).
@@ -310,12 +340,14 @@ def overfit(cfg_model, batch, steps: int = 300, lr: float = 2e-3,
     In order: ``init_mask_query`` scaled by ``query_scale`` (sharper
     initial retrieval breaks the slots' symmetry); a ResNet backbone's BN
     statistics calibrated on ``[ref_img; img]`` with the replay check;
-    then each step a ``train_step`` with ``fixed_match``, the norm caps,
-    the BN calibration again (ResNet) and the FPN gain fix.  Every 20 steps
-    (``PROBE_EVERY``) from ``min(100, steps)`` (``PROBE_FROM``) on, a
-    probe decodes the current frame against itself (no autograd) and
-    scores ``min(#slots with a non-background class above 0.85, #GT) +
-    mean across-slot score std``; the best scoring state is kept as a
+    with ``fg_scale`` (the port's option; the JAX package's recipe has
+    none), ``calibrate_fg_bn`` on ``img``; then each step a ``train_step``
+    with ``fixed_match``, the norm caps, the BN calibration again (ResNet)
+    and the FPN gain fix.  Every 20 steps (``PROBE_EVERY``) from
+    ``min(100, steps)`` (``PROBE_FROM``) on, a probe decodes the current
+    frame against itself (no autograd) and scores ``min(#slots with a
+    non-background class above 0.85, #GT) + mean across-slot score
+    std``; the best scoring state is kept as a
     detached copy (the parameters change in place) and loaded at the
     end.  ``model.probe`` is the best probe's ``{"step",
     "confident_slots", "slot_std"}``, None when no probe fired."""
@@ -341,6 +373,8 @@ def overfit(cfg_model, batch, steps: int = 300, lr: float = 2e-3,
             calibrate_bn_stats(model.backbone, both, check=check)
 
         recal(check=True)
+    if fg_scale is not None:
+        calibrate_fg_bn(model, cfg_model, batch.img, fg_scale)
     opt = _grouped_optimizer(model, lr, head_lr_mult, decay_steps=steps)
     renorm = _norm_cap_fn(model)
     fpn_fix = _fpn_gain_fix(cfg_model, batch.img)

@@ -2,7 +2,8 @@
 training-mode BatchNorm, the backbone's BN calibration (replay check
 included), the overfit recipe's norm caps, its two-group optimizer and
 FPN gain fix, ``overfit`` itself for two steps from the JAX package's init,
-and the sigmoid focal loss.
+and the sigmoid focal loss; and the port's own fg_bn calibration
+(``calibrate_fg_bn``, ``overfit(fg_scale=...)``).
 
 All at the tiny configuration of tests/test_train_eval_loop.py
 (``_tiny_model_cfg``: R18, 20 slots, 4 decoder stages; the plain DCN)
@@ -437,6 +438,64 @@ def test_overfit_keeps_a_copy_of_the_best_state(init, scene, monkeypatch,
     final = model.state_dict()
     assert all(torch.equal(final[k], v) for k, v in seen[0].items())
     assert any(not torch.equal(last[0][k], v) for k, v in seen[0].items())
+
+
+def _mask_logits(model, tcfg, img):
+    from slotvps_tpu_torch.models.detector import (decode_pair,
+                                                   extract_features)
+
+    with torch.no_grad():
+        f = extract_features(model, tcfg, img)
+        return decode_pair(model, tcfg, f, f).pred_masks.float()
+
+
+def test_calibrate_fg_bn_centres_the_mask_logits(init, scene):
+    """The port's own step (the JAX package has none): after
+    calibrate_fg_bn the mask logits of the frame it saw have mean 0 and
+    standard deviation ``scale`` (f32 statistics of 20 x 8 x 16 logits:
+    within 1e-4 of ``scale``), and nothing but fg_bn changed."""
+    scale = 2.0
+    _, tcfg, params, state = init
+    model = port_model(params, tcfg)
+    img = tsyn.scene_train_batch(scene).img
+    before = _mask_logits(model, tcfg, img)
+    tsyn.calibrate_fg_bn(model, tcfg, img, scale)
+    after = _mask_logits(model, tcfg, img)
+    var, mean = torch.var_mean(after, correction=0)
+    assert abs(float(mean)) <= 1e-4 * scale
+    np.testing.assert_allclose(float(var.sqrt()), scale, rtol=1e-4)
+    # an affine map of the same logits
+    np.testing.assert_allclose(
+        after.numpy(), ((before - before.mean()) / before.std(
+            correction=0) * scale).numpy(), rtol=1e-3, atol=1e-3 * scale)
+    got = model.state_dict()
+    assert float(got["fg_bn.weight"]) == scale
+    assert float(got["fg_bn.bias"]) == 0.0
+    for k, v in state.items():
+        if not k.startswith("fg_bn."):
+            assert torch.equal(got[k], v), k
+
+
+def test_overfit_calibrates_fg_bn_once_before_the_first_step(
+        init, scene, monkeypatch):
+    """With ``fg_scale`` the calibration runs once, after the backbone's
+    BN calibration and before the first step (without it the recipe is
+    the JAX package's: ``test_overfit_two_steps_match_jax``)."""
+    from slotvps_tpu_torch.training import step as tstep
+
+    _, tcfg, _, state = init
+    events = []
+    real_fg, real_bn = tsyn.calibrate_fg_bn, tres.calibrate_bn_stats
+    real_step = tstep.train_step
+    monkeypatch.setattr(tsyn, "calibrate_fg_bn", lambda m, c, img, s: (
+        events.append(("fg", s)), real_fg(m, c, img, s))[1])
+    monkeypatch.setattr(tres, "calibrate_bn_stats", lambda *a, **k: (
+        events.append(("bn",)), real_bn(*a, **k))[1])
+    monkeypatch.setattr(tstep, "train_step", lambda *a, **k: (
+        events.append(("step",)), real_step(*a, **k))[1])
+    tsyn.overfit(tcfg, tsyn.scene_train_batch(scene), steps=1, lr=LR,
+                 device="cpu", state_dict=state, fg_scale=1.5)
+    assert events == [("bn",), ("fg", 1.5), ("step",), ("bn",)]
 
 
 def test_sigmoid_focal_loss_matches_jax():

@@ -290,3 +290,125 @@ def test_synthetic_scene_copy_matches():
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
         np.testing.assert_array_equal(ts.norm_img(a.img), js.norm_img(b.img))
+
+
+def _boxes(rng, n, size=60.0):
+    b = rng.uniform(0, size, (n, 4)).astype(np.float32)
+    b[:, 2:] = b[:, :2] + rng.uniform(1, 25, (n, 2))
+    return b
+
+
+def _detections(rng, n_img=3, n_cls=3):
+    """Per image, per class [n, 5] detections (boxes near the GT, some
+    classes empty) and the GT boxes and 1-based labels."""
+    dets, gts, labels = [], [], []
+    for i in range(n_img):
+        gt = _boxes(rng, 4 + i)
+        lab = rng.integers(1, n_cls + 1, len(gt))
+        per_cls = []
+        for c in range(n_cls):
+            near = gt[lab == c + 1] + rng.normal(0, 3, (int((lab == c + 1)
+                                                            .sum()), 4))
+            boxes = np.concatenate([near, _boxes(rng, int(rng.integers(
+                0, 3)))]).astype(np.float32)
+            per_cls.append(np.concatenate(
+                [boxes, rng.uniform(0, 1, (len(boxes), 1))], axis=1)
+                .astype(np.float32))
+        dets.append(per_cls)
+        gts.append(gt)
+        labels.append(lab)
+    return dets, gts, labels
+
+
+@pytest.mark.parametrize("mode", ["iou", "iof"])
+def test_detection_overlaps_and_ap_copy_matches(mode):
+    """eval/detection.py: bbox_overlaps (and transforms', the same
+    function), average_precision in both modes on 1-D and 2-D curves,
+    _tpfp_default with and without ignored GT."""
+    from slotvps_tpu.eval import detection as jd
+    from slotvps_tpu_torch.data import transforms as tt
+    from slotvps_tpu_torch.eval import detection as td
+
+    rng = np.random.default_rng(11)
+    a, b = _boxes(rng, 6), _boxes(rng, 5)
+    _assert_same(td.bbox_overlaps(a, b, mode), jd.bbox_overlaps(a, b, mode))
+    _assert_same(td.bbox_overlaps(a[:0], b, mode),
+                 jd.bbox_overlaps(a[:0], b, mode))
+    assert tt.bbox_overlaps is td.bbox_overlaps
+    rec = np.sort(rng.uniform(0, 1, (2, 9)), axis=1)
+    prec = rng.uniform(0, 1, (2, 9))
+    for ap_mode in ("area", "11points"):
+        _assert_same(td.average_precision(rec, prec, ap_mode),
+                     jd.average_precision(rec, prec, ap_mode))
+        _assert_same(td.average_precision(rec[0], prec[0], ap_mode),
+                     jd.average_precision(rec[0], prec[0], ap_mode))
+    with pytest.raises(ValueError):
+        td.average_precision(rec, prec, "bad")
+    det = np.concatenate([b + rng.normal(0, 2, b.shape),
+                          rng.uniform(0, 1, (len(b), 1))], axis=1)
+    ignore = np.asarray([False, True, False, False, True])
+    for gt_ignore in (None, ignore):
+        for thr in (0.3, 0.5):
+            _assert_same(td._tpfp_default(det, b, gt_ignore, thr),
+                         jd._tpfp_default(det, b, gt_ignore, thr))
+    _assert_same(td._tpfp_default(det, b[:0], None, 0.5),
+                 jd._tpfp_default(det, b[:0], None, 0.5))
+
+
+@pytest.mark.parametrize("mode", ["area", "11points"])
+def test_detection_eval_copy_matches(mode):
+    """eval_map in both AP modes, eval_recalls with scored and unscored
+    proposals, confusion_matrix."""
+    from slotvps_tpu.eval import detection as jd
+    from slotvps_tpu_torch.eval import detection as td
+
+    rng = np.random.default_rng(12)
+    dets, gts, labels = _detections(rng)
+    for thr in (0.3, 0.5, 0.75):
+        _assert_same(td.eval_map(dets, gts, labels, thr, mode),
+                     jd.eval_map(dets, gts, labels, thr, mode))
+    scored = [np.concatenate([g + rng.normal(0, 4, g.shape),
+                              rng.uniform(0, 1, (len(g), 1))], axis=1)
+              for g in gts]
+    for props in (scored, [p[:, :4] for p in scored]):
+        _assert_same(
+            td.eval_recalls(gts, props, (1, 3, 10), (0.3, 0.5, 0.7)),
+            jd.eval_recalls(gts, props, (1, 3, 10), (0.3, 0.5, 0.7)))
+    gt_l = rng.integers(0, 19, (24, 32))
+    pred_l = np.where(rng.random(gt_l.shape) < 0.8, gt_l,
+                      rng.integers(0, 19, gt_l.shape))
+    _assert_same(td.confusion_matrix(gt_l, pred_l, 19),
+                 jd.confusion_matrix(gt_l, pred_l, 19))
+
+
+def test_detection_json_copy_matches(tmp_path):
+    """The COCO json helpers: xyxy2xywh, det2json / json2det round trip,
+    proposal2json, results2json's files, its TypeError."""
+    import json
+
+    from slotvps_tpu.eval import detection as jd
+    from slotvps_tpu_torch.eval import detection as td
+
+    rng = np.random.default_rng(13)
+    dets, gts, _ = _detections(rng)
+    ids = [10001, 10002, 20001]
+    _assert_same(td.xyxy2xywh(gts[0][0]), jd.xyxy2xywh(gts[0][0]))
+    payload = td.det2json(ids, dets)
+    _assert_same(payload, jd.det2json(ids, dets))
+    back = td.json2det(payload, ids, 3)
+    _assert_same(back, jd.json2det(payload, ids, 3))
+    for x, y in zip(back, dets):
+        for c, d in zip(x, y):
+            np.testing.assert_allclose(c, d, rtol=0, atol=1e-4)
+    props = [np.concatenate([g, rng.uniform(0, 1, (len(g), 1))], axis=1)
+             for g in gts]
+    _assert_same(td.proposal2json(ids, props), jd.proposal2json(ids, props))
+    for results in (dets, props):
+        ours = td.results2json(ids, results, str(tmp_path / "ours"))
+        ref = jd.results2json(ids, results, str(tmp_path / "ref"))
+        assert set(ours) == set(ref)
+        for kind in ours:
+            with open(ours[kind]) as a, open(ref[kind]) as b:
+                assert json.load(a) == json.load(b)
+    with pytest.raises(TypeError):
+        td.results2json(ids, [(1, 2)], str(tmp_path / "bad"))

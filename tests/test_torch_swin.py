@@ -60,7 +60,6 @@ from slotvps_tpu.models import detector as jdet
 from slotvps_tpu.models import swin as jswin
 from slotvps_tpu.utils import calibration as jcal
 from slotvps_tpu.utils import checkpoint as jckpt
-from slotvps_tpu.utils.parity import _match_relabel
 from slotvps_tpu_torch import config as tconfig
 from slotvps_tpu_torch.inference import (InferencePipeline,
                                          _device_normalize, run_video)
@@ -68,6 +67,7 @@ from slotvps_tpu_torch.models import detector as tdet
 from slotvps_tpu_torch.models import swin as tswin
 from slotvps_tpu_torch.utils import checkpoint as tckpt
 from slotvps_tpu_torch.utils.convert import _convert_leaf, from_jax_params
+from slotvps_tpu_torch.utils.parity import _match_relabel
 from tests.test_checkpoint import _to_torch_sd
 from tests.test_torch_bf16 import soften_retrievers
 from tests.test_torch_models import port_model, tiny_model_cfg

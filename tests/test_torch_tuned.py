@@ -51,7 +51,6 @@ from jax.experimental.pallas import tpu as pltpu
 from slotvps_tpu import config as jconfig
 from slotvps_tpu.inference import InferencePipeline as JaxPipeline
 from slotvps_tpu.utils import calibration as jcal
-from slotvps_tpu.utils.parity import _match_relabel
 from slotvps_tpu_torch import config as tconfig
 from slotvps_tpu_torch.inference import (InferencePipeline,
                                          _device_normalize, run_video)
@@ -59,6 +58,7 @@ from slotvps_tpu_torch.models import detector as tdet
 from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
 from slotvps_tpu_torch.ops.cuda.postproc_v3 import sseg_hopper
 from slotvps_tpu_torch.ops.cuda.slot_attention import slot_attention_hopper
+from slotvps_tpu_torch.utils.parity import _match_relabel
 from tests.test_torch_bf16 import (_assert_module, _bf16_cfg,
                                    soften_retrievers)
 from tests.test_torch_models import doctored_params, port_model
