@@ -88,6 +88,14 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      counted; each kernel against its plain version; on the real frame the
      chain against the v3 kernels' chain on the same masks (bit-identical
      given the same theta); kernel and plain times.
+  5c. cost    — utils/profiler.cost_analysis of one bf16 1024x2048 frame
+     (the JAX bench's frame step: extract, decode_pair against the
+     previous frame's features, postprocess_frame) on the kernel routes
+     (the bf16 DCN, slot-attention, sseg and fused postprocess kernels),
+     with the reference postprocess on the claim-scan kernel, and on the
+     plain routes; the three counts must be equal (flops and bytes), each
+     with its launches; the frame's TFLOP and its TFLOP/s on each route's
+     measured ms, with the card's name and power limit.
   6. stages   — per-stage times of the frame (device synchronize between
      stages) for the bf16 and the f32 path, the postprocess with each impl,
      and a torch.profiler pass each: device time by kernel and busy share.
@@ -185,6 +193,20 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
      finite losses and gradients, ms a step, peak memory, the DCN kernels'
      device ms under the profiler; then 3 steps of utils/synthetic.overfit
      with Swin-L at 512x1024, finite losses.
+  9f. tp      — the dp x tp train step (cli/dryrun_multichip.run_steps,
+     training/step.train_step with a mesh): two processes on cuda:0 over
+     gloo (NCCL puts one rank on a card; the step's collectives are
+     all-reduces, which gloo runs on CUDA tensors), a (1, 2) ("data",
+     "model") mesh, the decoder FFNs split over "model" by
+     parallel/mesh.param_sharding; the train phase's R50 model at full
+     width, state and 800x1600 batch; 2 steps, each against a plain step
+     from the same state (TP_* tolerances on the loss terms, the global
+     norm before the clip and the gathered gradients; a second plain step
+     gives what the card's own reductions move); the updates bit for bit
+     torch's AdamW on the gathered gradients; a second tp run whose last
+     step clips without the "model" sum must miss the norm tolerance;
+     12 forward and 12 backward bf16 DCN launches a step on each rank, ms
+     a step beside the plain step's.
   10. report  — the card line, the kernels' JSON line, and last the result
      line {"ok": true, "device": {...}}.
 
@@ -195,6 +217,7 @@ without CUDA or outside a checkout of the repository.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import dataclasses
 import inspect
 import json
@@ -203,11 +226,14 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+
+from slotvps_tpu_torch.utils import cost
 
 H, W = 1024, 2048
 N_FRAMES = 6
@@ -343,6 +369,27 @@ DDP_GRAD_RTOL = 1e-5
 DDP_LOSS_RTOL = 1e-6
 DDP_LR = 1e-4
 DDP_STEPS = 3
+# tp: the dp x tp step on a (1, 2) mesh, two processes on the card over
+# gloo, each step against a plain step from the same state and batch (the
+# later steps from the tp run's own state): its loss terms within
+# TP_LOSS_RTOL, its global norm before the clip within TP_NORM_RTOL, its
+# gradients each within TP_GRAD_RTOL of its max|g| (floored at
+# TP_GRAD_FLOOR of the largest); the update bit for bit AdamW's on the
+# gathered gradients.  The FFN halves round otherwise than the whole FFN,
+# and the bf16 DCN backward rounds its incoming gradient to bf16, so that
+# flips a few of its roundings.  Measured on the H100 (steps 1 / 2): the
+# loss terms 1.8e-7 / 8.6e-8, the norm 3.4e-5 / 9.8e-5, the gradients
+# 1.7e-4 / 3.4e-4 (two plain steps 1: 0, 0, 2.9e-7); the bounds are about
+# 3x the larger.  The clip without the "model" sum of the shards' squares,
+# in step 2, read 4.1e-5, 2.6e-3 and 1.6e-2: it must miss TP_NORM_RTOL.
+TP_STEPS = 2
+TP_LOSS_RTOL = 1e-6
+TP_NORM_RTOL = 3e-4
+TP_GRAD_RTOL = 1e-3
+TP_GRAD_FLOOR = 1e-2
+TP_TIMEOUT = 600
+# cost: uncounted runs of the counted frame step a route, for its ms
+COST_TIMED = 5
 SRC = "slotvps_tpu_torch/csrc/"
 PV3 = "slotvps_tpu/ops/pallas/postproc_v3.py"
 PFU = "slotvps_tpu/ops/pallas/postproc_fused.py"
@@ -829,12 +876,13 @@ def phase_kernels(dev, levels=DCN_LEVELS, blocks=DCN_BLOCKS, timed=True,
             ok = (bool(torch.isfinite(out).all()) and out.dtype == io_dtype
                   and err <= rtol * scale)
             # each input read once, the output written once; one FMA = 2
-            n_bytes = size * (b * h * w * (cin + 18 + cout) + 9 * cin * cout)
+            work = cost.dcn_forward(b, h, w, cin, cout, x_size=size)
             row = dict(shape=f"P{li + 2} {b}x{h}x{w} {cin}->{cout} halo "
                              f"{halo}", dtype=str(dtype),
                        io_dtype=str(io_dtype), max_abs_err=err,
-                       max_abs_ref=scale, rel_err=err / scale, bytes=n_bytes,
-                       ops=2 * 9 * cin * cout * b * h * w)
+                       max_abs_ref=scale, rel_err=err / scale,
+                       bytes=work.bytes, ops=work.products,
+                       ops_f32=work.gathers)
             row["bound_ms"], row["bound_by"] = _fwd_bound([row], dtype)
             if dtype == torch.float32:
                 row["bound_fma_ms"] = _fma_bound([row])
@@ -855,12 +903,14 @@ def phase_kernels(dev, levels=DCN_LEVELS, blocks=DCN_BLOCKS, timed=True,
 def _fwd_bound(rows, dtype):
     """Bound of the forward rows' work: bf16 products on the tensor cores;
     f32 products as the kernel runs them, three TF32 products each (the
-    f32 FMA bound beside it: :func:`_fma_bound`)."""
+    f32 FMA bound of the products beside it: :func:`_fma_bound`); the
+    bilinear sampling on the f32 pipes (never the longest here)."""
     n_bytes = sum(r["bytes"] for r in rows)
     ops = sum(r["ops"] for r in rows)
+    ops_f32 = sum(r["ops_f32"] for r in rows)
     if dtype == torch.float32:
-        return bound(n_bytes, 0, n_ops_tf32=TF32_PASSES * ops)
-    return bound(n_bytes, 0, n_ops_bf16=ops)
+        return bound(n_bytes, ops_f32, n_ops_tf32=TF32_PASSES * ops)
+    return bound(n_bytes, ops_f32, n_ops_bf16=ops)
 
 
 def _fma_bound(rows, ops_keys=("ops",)):
@@ -906,21 +956,18 @@ def phase_backward_kernels(dev, levels=TRAIN_LEVELS, blocks=DCN_BLOCKS,
             ok = (all(bool(torch.isfinite(a).all()) for a in out)
                   and all(errs[n] <= rtol * scales[n] for n in errs)
                   and all(torch.equal(a, b) for a, b in zip(out, again)))
-            p = b * h * w
             # inputs (x and W in the compute dtype, f32 offsets, g) read
             # once, dx, doff and dW written once in f32; dsample and dW are
             # each 2*9*Cin*Cout flops a pixel in the compute dtype; the dx
             # sums, the sample recompute and the offset sums 24 f32 flops
             # per (pixel, tap, input channel)
-            n_bytes = (size * (p * (cin + cout) + 9 * cin * cout)
-                       + 4 * (p * (cin + 36) + 9 * cin * cout))
+            work = cost.dcn_backward(b, h, w, cin, cout, x_size=size)
             row = dict(shape=f"P{li + 2} {b}x{h}x{w} {cin}->{cout} halo "
                              f"{halo}", dtype=str(dtype),
                        max_abs_err=max(errs.values()),
                        rel_err=max(errs[n] / scales[n] for n in errs),
-                       errs=errs, bytes=n_bytes,
-                       ops_main=4 * 9 * cin * cout * p,
-                       ops_f32=24 * 9 * cin * p)
+                       errs=errs, bytes=work.bytes,
+                       ops_main=work.products, ops_f32=work.gathers)
             row["bound_ms"], row["bound_by"] = _bwd_bound([row], dtype)
             row["bound_parts_ms"] = _bwd_bound([row], dtype, parts=True)
             if dtype == torch.float32:
@@ -1296,38 +1343,19 @@ def _owned_px(owner, kept, is_thing):
 
 def _pp_bounds(k, h, w, n_valid, n_things, n_kept, n_kept_things,
                dirty_frac, t, owned=0):
-    """(bytes, operations) of the four functions on this run's data.  Each
-    counts only the slots its output depends on (theta the valid slots,
-    claim the valid things, argmax and repair the kept stuff slots and,
-    where a kept thing owns a pixel (``owned`` full-res pixels), that
-    thing), each input read once and each output written once.  One slot's
-    x4 upsample is separable: 3 flops per row-phase value and 3 per
-    column-phase value; a compare, exp or log is one operation."""
-    hw, full = h * w, 16 * h * w
-    up = 3 * 4 * hw + 3 * full                   # one slot, rows + columns
-    # per valid slot: max, subtract, exp, add; per pixel: log and two adds
-    theta = (4 * n_valid * hw + k + 4 * full,
-             n_valid * (up + 4 * full) + 3 * full)
-    # per thing: compare with theta, count, owner and class test; per kept
-    # thing: the claim
-    claim = (4 * n_things * hw + 4 * full + full + 5 * k,
-             n_things * (up + 5 * full) + n_kept_things * 2 * full)
-    # per kept stuff slot: compare, select; a kept thing counts 0.0 off
-    # the pixels it owns, so its mask is needed under those (owned / 16
-    # low-res values) with one upsample (~6 flops a pixel), a compare and
-    # a select; per pixel: the owner test, the 0.0 and -1e30 candidates,
-    # its count
+    """(bytes, operations) of the four functions on this run's data, from
+    their formulas in ``utils/cost.py``.  Each counts only the slots its
+    output depends on (theta the valid slots, claim the valid things,
+    argmax and repair the kept stuff slots and, where a kept thing owns a
+    pixel (``owned`` full-res pixels), that thing), each input read once
+    and each output written once."""
     n_stuff = n_kept - n_kept_things
-    argmax = (4 * n_stuff * hw + owned // 4 + full + 4 * full + 4 * t * k
-              + 2 * k,
-              n_stuff * (up + 2 * full) + 9 * owned + 4 * full)
-    # the argmax on the dirty tiles; the clean tiles copied through
-    repair = (dirty_frac * (4 * n_stuff * hw + owned // 4 + full)
-              + (1 - dirty_frac) * 4 * full + 4 * full + 8 * t * k + t
-              + 2 * k,
-              dirty_frac * argmax[1])
-    return {"theta_hopper": theta, "claim_hopper": claim,
-            "argmax_hopper": argmax, "repair_hopper": repair}
+    works = {"theta_hopper": cost.theta(k, h, w, n_valid),
+             "claim_hopper": cost.claim(k, h, w, n_things, n_kept_things),
+             "argmax_hopper": cost.argmax(k, h, w, n_stuff, owned, t),
+             "repair_hopper": cost.repair(k, h, w, n_stuff, owned, t,
+                                          dirty_frac)}
+    return {name: (wk.bytes, wk.f32_ops) for name, wk in works.items()}
 
 
 def phase_postproc_kernels(dev, shapes=PP_SHAPES, n_valid=PP_VALID,
@@ -1448,12 +1476,8 @@ def phase_sseg_kernel(dev, shape=SSEG_SHAPE, timed=True,
         if dev.type == "cuda":
             torch.cuda.synchronize()
         n_diff += int((out != ref).sum())
-    full = 16 * h * w
-    # read the logits once, write the int64 map; per full-res pixel and
-    # channel a column phase (3 flops) and a compare, per quarter-res
-    # value four row phases (3 flops each)
-    b_ms, b_by = bound(4 * c * h * w + 8 * full,
-                       4 * c * full + 12 * c * h * w)
+    work = cost.sseg(h, w, c)
+    b_ms, b_by = bound(work.bytes, work.f32_ops)
     row = dict(kernel="sseg_hopper", shape=list(shape), max_abs_err=n_diff,
                bound_ms=b_ms, bound_by=b_by)
     if timed:
@@ -1500,17 +1524,18 @@ def phase_slot_attention(dev, pixels=SA_PIXELS, n_slots=SA_SLOTS,
             torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
-        esz = 4 if f32 else 2
         # q, k, v read once, out written once; 2 flops per (slot, pixel,
         # channel) in each product, on the tensor cores as the kernel runs
-        # them (csrc/slot_attention.cu): bf16, q.k and p.v as three exact
-        # bf16 parts of the f32 p (bf16 in, f32 sums); f32, q.k and p.v as
-        # TF32_PASSES TF32 products each (the split-TF32 product; the f32
-        # FMA bound beside it); the softmax ~5 f32 per (slot, pixel)
-        n_bytes = esz * (slots + 2 * n_pix) * 256 + 4 * slots * 256
-        n_ops_bf16 = 0 if f32 else 4 * 2 * slots * 256 * n_pix
-        n_ops_tf32 = TF32_PASSES * 4 * slots * 256 * n_pix if f32 else 0
-        n_ops = 5 * slots * n_pix
+        # them (csrc/slot_attention.cu): bf16, q.k once and p.v as three
+        # exact bf16 parts of the f32 p (bf16 in, f32 sums: twice the
+        # function's products); f32, q.k and p.v as TF32_PASSES TF32
+        # products each (the split-TF32 product; the f32 FMA bound beside
+        # it); the softmax ~5 f32 per (slot, pixel)
+        work = cost.slot_attention(1, slots, n_pix, 256, 4 if f32 else 2)
+        n_bytes = work.bytes
+        n_ops_bf16 = 0 if f32 else 2 * work.products
+        n_ops_tf32 = TF32_PASSES * work.products if f32 else 0
+        n_ops = work.elementwise
         row = dict(L=slots, P=n_pix, dtype=str(dtype).split(".")[-1],
                    calls_per_frame=calls, max_abs_err=err,
                    max_abs_ref=scale, bytes=n_bytes, ops=n_ops,
@@ -4214,6 +4239,374 @@ def phase_tuned_vs_exact(dev, cal_size=(H, W), n_frames=TVE_FRAMES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# cost: utils/profiler.cost_analysis of one frame on the kernel and the
+# plain routes
+# ---------------------------------------------------------------------------
+
+
+def _frame_step(model, mcfg, img, ref_feats):
+    """The JAX bench's frame step (bench.py _make_frame_step): the current
+    frame's features, decode_pair against the carried reference features,
+    postprocess_frame at the frame's size."""
+    from slotvps_tpu_torch.models.detector import (decode_pair,
+                                                   extract_features)
+    from slotvps_tpu_torch.models.postprocess import postprocess_frame
+
+    with torch.inference_mode():
+        outs = decode_pair(model, mcfg, ref_feats,
+                           extract_features(model, mcfg, img))
+        return postprocess_frame(
+            outs.pred_logits[0], outs.pred_masks[0], outs.embeddings[0],
+            outs.fcn_output[0], tuple(img.shape[1:3]), mcfg.postprocess)
+
+
+def _with_postprocess(cfg, impl):
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, postprocess=dataclasses.replace(cfg.model.postprocess,
+                                                   impl=impl)))
+
+
+def phase_cost(dev, card, model, cfg, frames, n_timed=COST_TIMED):
+    """``utils/profiler.cost_analysis`` of one frame (the clip's second,
+    against the first's features) on three routes with the same weights:
+    the tuned bf16 stack with the slot-attention kernel (``cfg``: the bf16
+    DCN, sseg and fused postprocess kernels), the same with the reference
+    postprocess on the claim-scan kernel (``impl="pallas"``), and the
+    plain routes (``dcn_impl="jax"``, the plain Retriever, the reference
+    postprocess).  Each count runs with the launch counts set to 0 just
+    before and read just after (the kernels on the kernel routes, none on
+    the plain one); the three must count equal flops and equal bytes.
+    Then the frame step alone, uncounted, ``n_timed`` times on each route:
+    its median ms, and the frame's TFLOP/s on it."""
+    from slotvps_tpu_torch.inference import _device_normalize
+    from slotvps_tpu_torch.models.detector import extract_features
+    from slotvps_tpu_torch.utils import cost
+
+    img, ref_img = (_device_normalize(torch.from_numpy(f).to(dev), cfg.data)
+                    for f in (frames[1], frames[0]))
+    routes = {"kernels": cfg,
+              "claim_scan": _with_postprocess(cfg, "pallas"),
+              "plain": _with_postprocess(_plain_routes(cfg), "jax")}
+    out = {}
+    for name, c in routes.items():
+        with torch.inference_mode():
+            ref = extract_features(model, c.model, ref_img)
+
+        def counted():
+            with cost.count() as n:
+                _frame_step(model, c.model, img, ref)
+            return n
+
+        n, launches, wall, peak = _run_counted(dev, counted)
+        ms = []
+        for _ in range(n_timed):
+            _sync(dev)
+            t0 = time.perf_counter()
+            _frame_step(model, c.model, img, ref)
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        entries = {}
+        for e, w in n.entries:
+            entries[e] = entries.get(e, 0) + 1
+        out[name] = dict(flops=n.flops, bytes_accessed=n.bytes_accessed,
+                         tflop=n.flops / 1e12, entries=entries,
+                         launches=_nonzero(launches), count_wall_s=wall,
+                         frame_ms=statistics.median(ms), frame_ms_all=ms,
+                         tflop_per_s=n.flops / 1e12
+                         / (statistics.median(ms) / 1e3),
+                         peak_mem_gib=peak)
+        log("cost", f"[{name}] {json.dumps(out[name])}")
+    k = out["kernels"]
+    for name in ("claim_scan", "plain"):
+        if (out[name]["flops"], out[name]["bytes_accessed"]) != \
+                (k["flops"], k["bytes_accessed"]):
+            raise AssertionError(
+                f"cost: the {name} route counts {out[name]['flops']} flops "
+                f"and {out[name]['bytes_accessed']} bytes, the kernel route "
+                f"{k['flops']} and {k['bytes_accessed']}")
+    want = {"deform_conv2d_hopper_bf16": 12, "slot_attention_hopper": 14}
+    if any(out["kernels"]["launches"].get(n) != v for n, v in want.items()) \
+            or not {"sseg_hopper", "theta_hopper", "claim_hopper",
+                    "argmax_hopper"} <= set(out["kernels"]["launches"]) \
+            or out["claim_scan"]["launches"].get("claim_scan_hopper") != 1 \
+            or out["plain"]["launches"]:
+        raise AssertionError("cost: launches " + json.dumps(
+            {n: out[n]["launches"] for n in out}))
+    log("cost", f"one bf16 1024x2048 frame: {k['tflop']:.4f} TFLOP, "
+                f"{k['bytes_accessed'] / 1e9:.3f} GB counted on every route; "
+                f"{k['frame_ms']:.2f} ms on the kernel routes = "
+                f"{k['tflop_per_s']:.2f} TFLOP/s, "
+                f"{out['plain']['frame_ms']:.2f} ms plain = "
+                f"{out['plain']['tflop_per_s']:.2f} TFLOP/s ({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tp: the dp x tp step (tensor parallel over "model") on the card
+# ---------------------------------------------------------------------------
+
+
+def tp_worker(rank, port, inputs, outputs):
+    """One rank of the tp phase (``chip_smoke.py --tp-rank ...``): a
+    two-process gloo group whose ranks share cuda:0 (NCCL puts one rank
+    on a card; the CPU in a rehearsal), a (1, 2) ("data", "model") mesh of
+    the device's tensors, the train model from the given state,
+    ``cli/dryrun_multichip.run_steps`` on the given batch: its metrics,
+    step ms, global norms, whole gradients and parameters and this rank's
+    launches go to ``outputs``.  Then, from the same state, the same steps
+    with the fault the clip's check must see in the last (the shards'
+    squares not summed over "model": ``training/step._sum_over_model``
+    patched here): that step's metrics, global norm and gradients."""
+    import torch.distributed as dist
+
+    from slotvps_tpu_torch.cli.dryrun_multichip import run_steps
+    from slotvps_tpu_torch.models.detector import init_model
+    from slotvps_tpu_torch.parallel.env import init_distributed
+    from slotvps_tpu_torch.parallel.mesh import make_mesh
+    from slotvps_tpu_torch.training import step as tstep
+    from slotvps_tpu_torch.utils.precision import setup_precision
+
+    data = torch.load(inputs, weights_only=False)
+    dev = init_distributed(f"tcp://localhost:{port}", num_processes=2,
+                           process_id=rank, device=data["device"],
+                           backend="gloo")
+    try:
+        setup_precision()
+        mesh = make_mesh(1, 2, device_type=dev.type)
+        cfg = train_config().model
+        batch = data["batch"].to(dev)
+
+        def run(steps):
+            model = init_model(torch.Generator().manual_seed(0), cfg,
+                               device=dev)
+            model.load_state_dict(data["state"])
+            return run_steps(model, cfg, batch, mesh, steps=steps,
+                             lr=DDP_LR)
+
+        reset_counts()
+        out = run(data["steps"])
+        out["launches"] = _nonzero(launch_counts())
+        out["mesh"] = (tuple(mesh.mesh.shape), mesh.get_local_rank("model"),
+                       dist.get_backend(), str(dev))
+        keep, calls = tstep._sum_over_model, []
+
+        def last_without_model_sum(sq, group):
+            calls.append(None)
+            return sq if len(calls) == data["steps"] else keep(sq, group)
+
+        tstep._sum_over_model = last_without_model_sum
+        try:
+            fault = run(data["steps"])
+        finally:
+            tstep._sum_over_model = keep
+        out["no_model_sum"] = {k: fault[k][-1:]
+                               for k in ("metrics", "grad_norm", "grads")}
+        torch.save(out, outputs)
+    finally:
+        dist.destroy_process_group()
+
+
+def _plain_step(dev, cfg, init_state, batch, params=None, opt_state=None):
+    """One plain train step from ``init_state``, or from ``params`` and the
+    optimizer state ``opt_state`` (``AdamW.load_state_dict``'s form) where
+    given: its metrics, ms and global norm before the clip and, after it,
+    the gradients and parameters (on the CPU)."""
+    from slotvps_tpu_torch.models.detector import init_model
+    from slotvps_tpu_torch.training.step import make_optimizer, train_step
+
+    model = init_model(torch.Generator().manual_seed(0), cfg.model,
+                       device=dev)
+    model.load_state_dict(init_state)
+    if params is not None:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(params[n])
+    opt = make_optimizer(model, lr=DDP_LR)
+    if opt_state is not None:
+        if opt_state["names"] != [n for n, p in model.named_parameters()
+                                  if p.requires_grad]:
+            raise AssertionError("tp: the replayed optimizer's parameters "
+                                 "are not the model's")
+        opt.load_state_dict(opt_state)
+    _sync(dev)
+    t0 = time.perf_counter()
+    m = train_step(model, opt, batch, cfg.model)
+    _sync(dev)
+    out = dict(metrics={k: float(v) for k, v in m.items()},
+               step_ms=(time.perf_counter() - t0) * 1e3,
+               grad_norm=float(opt.global_norm),
+               grads={n: p.grad.to("cpu", copy=True)
+                      for n, p in model.named_parameters()},
+               params={n: p.detach().to("cpu", copy=True)
+                       for n, p in model.named_parameters()})
+    del model, opt
+    return out
+
+
+def _tp_replay(dev, init_state, run):
+    """The run's updates replayed: torch's AdamW with the step's settings
+    (``make_optimizer``'s, without its clip: the gradients are the clipped
+    ones the run used) on the whole tensors from ``init_state``, fed each
+    step's gathered gradients.  Returns, for each step, the parameters
+    that differ from the run's after it, bit for bit, and the optimizer's
+    state after it (``AdamW.load_state_dict``'s form, with the names)."""
+    from slotvps_tpu_torch.training.step import make_optimizer
+
+    names = list(run["grads"][0])
+    params = torch.nn.ParameterList(
+        torch.nn.Parameter(init_state[n].to(dev, copy=True)) for n in names)
+    opt = make_optimizer(params, lr=DDP_LR)
+    off, states = [], []
+    for k, (grads, after) in enumerate(zip(run["grads"], run["params"])):
+        for n, p in zip(names, params):
+            p.grad = grads[n].to(dev)
+        opt._opt.step()
+        off.append([n for n, p in zip(names, params)
+                    if not torch.equal(p.detach().cpu(), after[n])])
+        states.append({"count": k + 1, "names": names,
+                       "adamw": copy.deepcopy(opt._opt.state_dict())})
+    return off, states
+
+
+def _step_of(run, k):
+    return {key: run[key][k] for key in
+            ("metrics", "grad_norm", "grads", "params") if key in run}
+
+
+def _tp_diffs(a, b):
+    """The largest differences of step ``a`` against step ``b``: the loss
+    terms (relative), the global norms before the clip (relative), the
+    gradients (each tensor against its max|g|, floored at TP_GRAD_FLOOR
+    of the largest) and, where ``a`` has them, the parameters after the
+    update (absolute)."""
+    top = max(float(g.abs().max()) for g in b["grads"].values())
+    out = dict(
+        loss_rel=max(abs(a["metrics"][k] - v) / max(abs(v), 1e-30)
+                     for k, v in b["metrics"].items()),
+        norm_rel=abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"],
+        grad_rel=max(float((a["grads"][n] - g).abs().max())
+                     / max(float(g.abs().max()), TP_GRAD_FLOOR * top)
+                     for n, g in b["grads"].items()))
+    if "params" in a:
+        out["param_abs"] = max(float((a["params"][n] - p).abs().max())
+                               for n, p in b["params"].items())
+    return out
+
+
+def phase_tp(dev, init_state, batch, steps=TP_STEPS):
+    """The dp x tp train step on the card: r50_fpn_slotvps at full width in
+    the training configuration (f32, the bf16 DCN kernels forward and
+    backward), the train phase's state and 800x1600 batch, ``steps``
+    steps on a (1, 2) mesh: two processes (``tp_worker``) on cuda:0 over
+    gloo, each FFN of the decoder split over "model".  Held, by TP_*,
+    against plain steps in this process on the same batch: step 1 against
+    the plain step from the same state, each later step against a plain
+    step from the tp run's parameters and optimizer state before it (the
+    state is the replay's, which equals the run's bit for bit).  At each
+    step: the loss terms, the global norm before the clip and the whole
+    gradients (the shards gathered); the parameters after each update
+    equal, bit for bit, torch's AdamW replayed on the gathered gradients
+    (``_tp_replay``), are the same on both ranks, and after step 1 lie
+    within 2 lr of the plain step's.  A second plain step 1 gives what the
+    card's own reductions move; the clip fault in the last step
+    (``tp_worker``'s second run), against the same reference, must miss
+    the norm tolerance.  Each rank's DCN launches (12 forward and 12
+    backward a step); ms a step, the plain step's beside it."""
+    cfg = train_config()
+    plain = _plain_step(dev, cfg, init_state, batch)
+    plain2 = _plain_step(dev, cfg, init_state, batch)
+    torch.cuda.empty_cache()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    try:
+        torch.save({"state": {k: v.cpu() for k, v in init_state.items()},
+                    "batch": batch.to("cpu"), "steps": steps,
+                    "device": dev.type},
+                   tmp / "in.pt")
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--tp-rank", str(r), str(port), str(tmp / "in.pt"),
+             str(tmp / f"out{r}.pt")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=TP_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if any(p.returncode for p in procs):
+            raise AssertionError("tp: a rank failed:\n"
+                                 + "\n".join(x[-3000:] for x in logs))
+        ranks = [torch.load(tmp / f"out{r}.pt", weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    replays = [_tp_replay(dev, init_state, r) for r in ranks]
+    refs = [plain] + [_plain_step(dev, cfg, init_state, batch,
+                                  ranks[0]["params"][k - 1],
+                                  replays[0][1][k - 1])
+                      for k in range(1, steps)]
+    diffs = [[_tp_diffs(_step_of(r, k), ref) for k, ref in enumerate(refs)]
+             for r in ranks]
+    apart = [[n for n, p in after.items()
+              if not all(torch.equal(p, r["params"][k][n]) for r in ranks)]
+             for k, after in enumerate(ranks[0]["params"])]
+    fault = [_tp_diffs(_step_of(r["no_model_sum"], 0), refs[-1])
+             for r in ranks]
+    want = {"deform_conv2d_hopper_bf16_f32": 12 * steps,
+            "dcn_backward_hopper_bf16": 12 * steps}
+    stats = dict(path="tp", mesh=[r["mesh"] for r in ranks],
+                 launches=[r["launches"] for r in ranks],
+                 step_ms=[r["step_ms"] for r in ranks],
+                 plain_step_ms=[ref["step_ms"] for ref in [plain2] + refs],
+                 plain_vs_plain=_tp_diffs(plain2, plain), tp_vs_plain=diffs,
+                 replay_off=[[len(o) for o in off] for off, _ in replays],
+                 ranks_apart=[len(a) for a in apart],
+                 no_model_sum_vs_plain=fault,
+                 bounds=dict(loss_rel=TP_LOSS_RTOL, norm_rel=TP_NORM_RTOL,
+                             grad_rel=TP_GRAD_RTOL),
+                 grad_norm=[r["grad_norm"] for r in ranks],
+                 plain_grad_norm=[ref["grad_norm"] for ref in refs],
+                 loss_total=[m["loss_total"] for m in ranks[0]["metrics"]],
+                 plain_loss_total=[ref["metrics"]["loss_total"]
+                                   for ref in refs])
+    log("tp", json.dumps(stats))
+    for r, f in enumerate(fault):
+        log("tp", f"rank {r}, the clip without the \"model\" sum in step "
+                  f"{steps}: norm {f['norm_rel']:.3g} (bound {TP_NORM_RTOL}), "
+                  f"gradients {f['grad_rel']:.3g} (bound {TP_GRAD_RTOL}), "
+                  f"loss terms {f['loss_rel']:.3g} (bound {TP_LOSS_RTOL})")
+    if any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"tp: launches {stats['launches']}, want "
+                             f"{want} on each rank")
+    if any(apart):
+        raise AssertionError(f"tp: the ranks' whole parameters differ after "
+                             f"the update: {[a[:5] for a in apart]}")
+    for off, _ in replays:
+        if any(off):
+            raise AssertionError(f"tp: the parameters after the update are "
+                                 f"not AdamW's on the gathered gradients: "
+                                 f"{[o[:5] for o in off]}")
+    lr = DDP_LR * (1 + 1e-3)
+    for d in diffs:
+        if not (d[0]["param_abs"] <= 2 * lr
+                and all(x["loss_rel"] <= TP_LOSS_RTOL
+                        and x["norm_rel"] <= TP_NORM_RTOL
+                        and x["grad_rel"] <= TP_GRAD_RTOL for x in d)):
+            raise AssertionError(f"tp: the two-rank step is off the plain "
+                                 f"step: {d} (plain against plain: "
+                                 f"{stats['plain_vs_plain']})")
+    if any(f["norm_rel"] <= TP_NORM_RTOL for f in fault):
+        raise AssertionError(f"tp: the norm check does not see the clip "
+                             f"without the \"model\" sum: {fault}")
+    return stats
+
+
 def _device_time_by_kernel(prof):
     by_name = {}
     for ev in prof.key_averages():
@@ -4355,6 +4748,7 @@ def main():
     phase_stages(model, cfg, frames, "bf16")
     phase_stages(model, cfg32, frames[:3], "f32")
     phase_plain(model, cfg, frames, results, results32)
+    phase_cost(dev, card, model, cfg, frames)
     # serving: a second clip, so the batched videos differ
     frames_b = make_clip(H, W, N_SERVE, seed=2)
     serving_rows = dict(top2_rows)
@@ -4393,6 +4787,10 @@ def main():
     # the data-parallel step in a world of one against the plain step
     torch.cuda.empty_cache()
     phase_ddp(dev, init_state, batch)
+    # the dp x tp step: two ranks on the card over gloo, the decoder FFNs
+    # split over "model", against the plain step
+    torch.cuda.empty_cache()
+    phase_tp(dev, init_state, batch)
     # the rest of training: the overfit recipe and the eval hook, then the
     # train CLI with the hook
     torch.cuda.empty_cache()
@@ -4429,4 +4827,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
+    else:
+        main()

@@ -253,6 +253,9 @@ def run_batched(model, cfg, bsz, chunks, sizes, emit):
 
 
 def main(argv=None):
+    from slotvps_tpu_torch.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args = parse_args(argv)
     device = resolve_device(args.device)
     setup_precision()

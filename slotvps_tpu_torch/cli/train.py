@@ -263,7 +263,9 @@ def load_train_state(path, model, optimizer, device):
 
 def main(argv=None):
     from slotvps_tpu_torch.parallel.env import init_distributed
+    from slotvps_tpu_torch.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     args = parse_args(argv)
     device = init_distributed(device=args.device)
     try:

@@ -153,6 +153,17 @@ def linear(x, weight, bias=None):
                     None if bias is None else bias.to(x.dtype))
 
 
+def ffn(linear1: Linear, linear2: Linear, act, x):
+    """``linear2(act(linear1(x)))``; a pair that
+    ``parallel/mesh.shard_model`` split over the "model" ranks runs on
+    this rank's hidden slice (``parallel/mesh.tp_ffn``)."""
+    if getattr(linear1, "tp", None) is not None:
+        from slotvps_tpu_torch.parallel.mesh import tp_ffn
+
+        return tp_ffn(linear1, linear2, act, x)
+    return linear2(act(linear1(x)))
+
+
 def layer_norm(x, weight, bias, eps=1e-5):
     # statistics in f32, as in the JAX package
     xf = x.float()

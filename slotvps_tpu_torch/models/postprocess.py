@@ -50,6 +50,7 @@ from slotvps_tpu_torch.ops.cuda.postproc_v3 import (argmax_hopper,
                                                     theta_hopper)
 from slotvps_tpu_torch.ops.interpolate import (interpolate_bilinear,
                                                upsample_x4_bilinear)
+from slotvps_tpu_torch.utils import cost
 
 _NEG = -1e30
 
@@ -231,6 +232,7 @@ def _capacity(n_valid: int, k: int, cap: int) -> int:
     return cap if n_valid <= cap else k
 
 
+@cost.entry("postprocess", lambda *args, out, **kw: cost.io_bytes(args, out))
 def postprocess_frame(
     pred_logits: torch.Tensor,   # [K, C]
     pred_masks: torch.Tensor,    # [K, h, w] quarter-res logits
@@ -244,7 +246,9 @@ def postprocess_frame(
     ``impl="fused"`` runs the kernels when the target is 4x the mask size
     and mask removal is on; otherwise, as in the JAX package, the
     reference path, whose claim loop runs on the claim-scan kernel with
-    ``impl="pallas"``."""
+    ``impl="pallas"``.  The routes part here, so ``utils/cost.py`` counts
+    the call as its inputs read and its outputs written, whatever
+    ``impl``."""
     if cfg.impl not in ("jax", "fused", "pallas"):
         raise ValueError(f"unknown postprocess impl {cfg.impl!r}")
     k = pred_logits.shape[0]

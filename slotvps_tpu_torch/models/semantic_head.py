@@ -42,6 +42,7 @@ from slotvps_tpu_torch.ops.cuda.deform_conv import deform_conv2d_hopper
 from slotvps_tpu_torch.ops.deform_conv import deform_conv2d
 from slotvps_tpu_torch.ops.interpolate import (upsample_int_bilinear,
                                                upsample_x4_bilinear)
+from slotvps_tpu_torch.utils import cost
 
 
 class DCNBlock(nn.Module):
@@ -56,19 +57,35 @@ class DCNBlock(nn.Module):
     def forward(self, x, gn_groups, impl="jax", halo=0):
         offset = self.offset(x, padding=1)
         weight = self.conv.weight.permute(2, 3, 1, 0)  # -> [3, 3, Cin, Cout]
-        if impl in ("pallas", "pallas_f32"):
-            dtype = torch.bfloat16 if impl == "pallas" else torch.float32
-            out = deform_conv2d_hopper(x.contiguous(), offset.contiguous(),
-                                       weight, halo or 4,
-                                       compute_dtype=dtype)
-        elif impl == "jax":
-            out = deform_conv2d(x, offset, weight, padding=1,
-                                max_displacement=halo or 8)
-        else:
-            raise ValueError(f"unknown dcn_impl {impl!r}")
+        out = cost.entry_with_backward(
+            "dcn", lambda *args: _deform_conv(*args, impl, halo),
+            _dcn_works, x, offset, weight)
         out = L.group_norm(out, self.gn.weight, self.gn.bias,
                            num_groups=gn_groups)
         return L.relu(out)
+
+
+def _dcn_works(x, offset, weight):
+    """The DCN's forward and backward Work (``utils/cost.py``)."""
+    b, h, w, cin = x.shape
+    cout = weight.shape[-1]
+    xs, offs, ws = (t.element_size() for t in (x, offset, weight))
+    return (cost.dcn_forward(b, h, w, cin, cout, xs, offs, ws),
+            cost.dcn_backward(b, h, w, cin, cout, xs, ws, xs, offs, xs))
+
+
+def _deform_conv(x, offset, weight, impl, halo):
+    """The semantic tower's deformable conv on ``impl``'s route: the
+    branch point of the kernel and its plain version
+    (``utils/cost.py`` counts the DCN's formulas here)."""
+    if impl in ("pallas", "pallas_f32"):
+        dtype = torch.bfloat16 if impl == "pallas" else torch.float32
+        return deform_conv2d_hopper(x.contiguous(), offset.contiguous(),
+                                    weight, halo or 4, compute_dtype=dtype)
+    if impl == "jax":
+        return deform_conv2d(x, offset, weight, padding=1,
+                             max_displacement=halo or 8)
+    raise ValueError(f"unknown dcn_impl {impl!r}")
 
 
 class SemanticHead(nn.Module):

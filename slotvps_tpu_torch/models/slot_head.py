@@ -15,7 +15,8 @@ The Retriever's attention core has two routes, picked by
 :func:`retriever_attention` (plain PyTorch in the activations' dtype, the
 JAX package's ``"jax"`` route) and :func:`retriever_attention_pallas` (the
 Hopper slot-attention kernel, ``ops/cuda/slot_attention.py``, with the
-JAX Pallas kernel's numerics: f32 scores, softmax and output).
+JAX Pallas kernel's numerics: f32 scores, softmax and output).  The two
+cores are the branch point that ``utils/cost.py`` counts by its formula.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from slotvps_tpu_torch.config import SlotHeadConfig
 from slotvps_tpu_torch.models import layers as L
 from slotvps_tpu_torch.ops.cuda.slot_attention import slot_attention_hopper
 from slotvps_tpu_torch.ops.interpolate import upsample_int_bilinear
+from slotvps_tpu_torch.utils import cost
 
 # ---------------------------------------------------------------------------
 # init
@@ -116,17 +118,24 @@ def init_slot_head(gen, cfg: SlotHeadConfig) -> SlotHead:
 # ---------------------------------------------------------------------------
 
 
-def retriever_attention(p: Retriever, slots, features, pos,
-                        softmax_dim="slots"):
-    """MaskDynamicConv (reference dynamic_mask_head.py:423-461).
-
-    slots: [B, L, D]; features: [B, H, W, D]; pos: [H, W, D] or None.
-    Softmax over the SLOT axis (inverted/slot attention), not pixels.
-    """
+def _retriever_qkv(p: Retriever, slots, features, pos):
+    """The Retriever's normalized projections: q [B, L, D] of the slots,
+    k (from the features plus ``pos``) and v [B, H, W, D]."""
     q = p.norm_q(p.to_q(slots))
     k_in = features if pos is None else features + pos.to(features.dtype)
-    k = p.norm_k(p.to_k(k_in))
-    v = p.norm_v(p.to_v(features))
+    return q, p.norm_k(p.to_k(k_in)), p.norm_v(p.to_v(features))
+
+
+def _core_work(q, k, v, *args, out):
+    b, n_slots, d = q.shape
+    return cost.slot_attention(b, n_slots, k.shape[1] * k.shape[2], d,
+                               q.element_size())
+
+
+@cost.entry("slot_attention", _core_work)
+def _attention_core(q, k, v, softmax_dim):
+    """softmax(q k^T) v with the softmax over slots (or pixels), in the
+    activations' dtype."""
     b, h, w, d = k.shape
     attn = q @ k.reshape(b, h * w, d).transpose(1, 2)       # [B, L, HW]
     if softmax_dim == "slots":
@@ -135,8 +144,29 @@ def retriever_attention(p: Retriever, slots, features, pos,
         attn = torch.softmax(attn, dim=-1)
     else:
         raise ValueError(softmax_dim)
-    out = attn @ v.reshape(b, h * w, d)                      # [B, L, D]
-    return L.relu(p.norm1(out))
+    return attn @ v.reshape(b, h * w, d)                     # [B, L, D]
+
+
+@cost.entry("slot_attention", _core_work)
+def _attention_core_kernel(q, k, v):
+    """The same core on the slot-attention kernel: f32 scores, softmax and
+    output, cast back to the slots' dtype."""
+    b, h, w, d = k.shape
+    out = slot_attention_hopper(q.contiguous(),
+                                k.reshape(b, h * w, d).contiguous(),
+                                v.reshape(b, h * w, d).contiguous())
+    return out.to(q.dtype)
+
+
+def retriever_attention(p: Retriever, slots, features, pos,
+                        softmax_dim="slots"):
+    """MaskDynamicConv (reference dynamic_mask_head.py:423-461).
+
+    slots: [B, L, D]; features: [B, H, W, D]; pos: [H, W, D] or None.
+    Softmax over the SLOT axis (inverted/slot attention), not pixels.
+    """
+    q, k, v = _retriever_qkv(p, slots, features, pos)
+    return L.relu(p.norm1(_attention_core(q, k, v, softmax_dim)))
 
 
 def retriever_attention_pallas(p: Retriever, slots, features, pos,
@@ -149,15 +179,8 @@ def retriever_attention_pallas(p: Retriever, slots, features, pos,
     if softmax_dim != "slots":
         raise ValueError("the slot-attention kernel implements the softmax "
                          f"over slots, not {softmax_dim!r}")
-    q = p.norm_q(p.to_q(slots))
-    k_in = features if pos is None else features + pos.to(features.dtype)
-    k = p.norm_k(p.to_k(k_in))
-    v = p.norm_v(p.to_v(features))
-    b, h, w, d = k.shape
-    out = slot_attention_hopper(q.contiguous(),
-                                k.reshape(b, h * w, d).contiguous(),
-                                v.reshape(b, h * w, d).contiguous())
-    return L.relu(p.norm1(out.to(q.dtype)))
+    q, k, v = _retriever_qkv(p, slots, features, pos)
+    return L.relu(p.norm1(_attention_core_kernel(q, k, v)))
 
 
 def slots_attention(p: Retriever, q_slots, kv_slots, softmax_dim="slots"):
@@ -178,7 +201,7 @@ def _temporal_head(p: TemporalHead, slots, cfg: SlotHeadConfig):
     act = L.ACTIVATIONS[t.activation]
     out = slots_attention(p.inst_interact, slots, slots, t.softmax_dim)
     slots = p.norm2(slots + out)
-    ffn = p.linear2(act(p.linear1(slots)))
+    ffn = L.ffn(p.linear1, p.linear2, act, slots)
     return p.norm3(slots + ffn)
 
 
@@ -191,7 +214,7 @@ def _stage_till_ffn(p: Stage, features, slots, pos, cfg: SlotHeadConfig,
     inter = retriever_fn(p.inst_interact, slots, features, pos,
                          cfg.softmax_dim)
     slots = p.norm2(slots + inter)
-    ffn = p.linear2(act(p.linear1(slots)))
+    ffn = L.ffn(p.linear1, p.linear2, act, slots)
     return p.norm3(slots + ffn)
 
 

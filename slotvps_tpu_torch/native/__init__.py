@@ -3,7 +3,8 @@
 The port's copy of ``slotvps_tpu/native``: the same C++ source and the same
 functions.  The host-side fusion hot loops are a small C++ library compiled
 on first use with g++ into ``slotvps_tpu_torch/_build/`` (listed in
-``.gitignore``); plain C linkage + ctypes, no pybind11.
+``.gitignore``; ``utils/compile_cache.enable_compile_cache`` moves it);
+plain C linkage + ctypes, no pybind11.
 
 Falls back silently to the pure-numpy implementations when no compiler is
 available (``available()`` reports the state).
@@ -25,8 +26,10 @@ _TRIED = False
 
 
 def _build_and_load() -> Optional[ctypes.CDLL]:
+    from slotvps_tpu_torch.utils.compile_cache import build_dir
+
     src = osp.join(osp.dirname(__file__), "fusion.cpp")
-    cache = osp.join(osp.dirname(osp.dirname(__file__)), "_build")
+    cache = str(build_dir())
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
     lib_path = osp.join(cache, f"libslotvps_fusion_{digest}.so")
@@ -68,6 +71,13 @@ def _lib() -> Optional[ctypes.CDLL]:
         _TRIED = True
         _LIB = _build_and_load()
     return _LIB
+
+
+def reset() -> None:
+    """Forget the loaded library: the next use builds or loads it from
+    the current build directory."""
+    global _LIB, _TRIED
+    _LIB, _TRIED = None, False
 
 
 def available() -> bool:

@@ -2,7 +2,8 @@
 
 Each library is one ``csrc/*.cu`` source with a plain C interface, compiled
 with ``nvcc`` for ``sm_90a`` into a shared library at first use, under
-``slotvps_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
+``slotvps_tpu_torch/_build/`` (listed in ``.gitignore``;
+``utils/compile_cache.enable_compile_cache`` moves it), and loaded with
 ``ctypes``.  A library's file name carries a hash of its source, the
 shared headers ``csrc/*.cuh`` and the flags, so an edited source is
 rebuilt.  Nothing is compiled or loaded at import
@@ -20,8 +21,9 @@ import time
 from pathlib import Path
 from typing import Callable, Optional
 
+from slotvps_tpu_torch.utils.compile_cache import build_dir
+
 _PKG = Path(__file__).resolve().parents[2]
-BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -54,7 +56,7 @@ class KernelLibrary:
             h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
         digest = hashlib.sha256(text
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"{self.name}_{digest[:12]}.so"
+        return build_dir() / f"{self.name}_{digest[:12]}.so"
 
     def build(self, verbose: bool = False) -> tuple:
         """Compile the library if it is not built yet.
@@ -64,7 +66,7 @@ class KernelLibrary:
         path = self.library_path()
         if path.exists():
             return path, 0.0
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS]
         if verbose:

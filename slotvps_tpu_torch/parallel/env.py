@@ -44,7 +44,8 @@ def _launcher_env():
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     device="cuda") -> Optional[torch.device]:
+                     device="cuda",
+                     backend: Optional[str] = None) -> Optional[torch.device]:
     """Start the default process group; returns this process's device
     (``cuda:<local rank>`` on the card), or None when there is nothing to
     start: no launcher variable is set and no argument given, one process.
@@ -53,8 +54,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
     without it ``MASTER_ADDR`` / ``MASTER_PORT`` are read (torchrun sets
     them).  ``num_processes`` and ``process_id`` override the launcher's
     world size and rank.  ``device``: "cuda" (the default) starts NCCL and
-    sets the process's CUDA device from its local rank; "cpu" starts
-    gloo."""
+    sets the process's CUDA device from its local rank (a card a local
+    rank); "cpu" starts gloo.  ``backend`` overrides the choice: "gloo"
+    with ``device="cuda"`` lets several processes share one card (the
+    local rank modulo the cards there are; NCCL refuses two ranks on one
+    device), which the tensor-parallel step's all-reduces allow."""
     env = _launcher_env()
     if env is None and num_processes is None \
             and coordinator_address is None:
@@ -77,11 +81,16 @@ def init_distributed(coordinator_address: Optional[str] = None,
     if kind == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("init_distributed: CUDA is not available")
-        dev = torch.device("cuda", local)
+        backend = backend or "nccl"
+        n_cards = torch.cuda.device_count()
+        if backend == "nccl" and local >= n_cards:
+            raise RuntimeError(f"init_distributed: local rank {local} has "
+                               f"no card of its own ({n_cards} cards); "
+                               "NCCL puts one rank on a card")
+        dev = torch.device("cuda", local % n_cards)
         torch.cuda.set_device(dev)
-        backend = "nccl"
     else:
-        dev, backend = torch.device(kind), "gloo"
+        dev, backend = torch.device(kind), backend or "gloo"
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank)
     return dev

@@ -23,7 +23,10 @@ takes the same update.  Every loss term but the semantic one is a mean of
 per-sample terms, which a mean of the ranks' means reproduces when the
 ranks hold equal batches; the semantic loss divides by the valid pixels of
 the whole batch, so ``loss_fn`` all-reduces that count and scales the
-rank's share by it.
+rank's share by it.  The dp x tp step (``train_step(mesh=...)``, the
+JAX package's step over a ("data", "model") mesh) does the same over the
+mesh's "data" group, with the decoder FFNs split over "model"
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -33,11 +36,13 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, \
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from slotvps_tpu_torch.config import ModelConfig
 from slotvps_tpu_torch.models.detector import (Detector, FrameFeatures,
                                                decode_pair_train)
 from slotvps_tpu_torch.models.semantic_head import semantic_loss
+from slotvps_tpu_torch.parallel.mesh import batch_rows
 from slotvps_tpu_torch.training.losses import (dice_similarity, hungarian,
                                                insdis_loss, match_cost,
                                                match_loss, pq_loss)
@@ -83,11 +88,31 @@ def make_train_batch(img, ref_img, gt_labels, gt_masks, gt_valid,
         ref_gt_labels, ref_gt_masks, ref_gt_valid, gt_pids)))
 
 
-def _clip_by_global_norm(grads, max_norm: float):
+def _sum_over_model(sq, group):
+    """The sharded gradients' sum of squares, summed over the "model"
+    ranks that hold the other shards."""
+    dist.all_reduce(sq, group=group)
+    return sq
+
+
+def _clip_by_global_norm(grads, max_norm: float, groups=None):
     """In place, as optax: every g scaled by max_norm / ||g|| where the
     global norm ||g|| (all tensors) is >= max_norm; no epsilon.  A few
-    multi-tensor launches, no host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    multi-tensor launches, no host sync.  ``groups[i]`` is the "model"
+    group of a gradient that holds one shard of its tensor (None for a
+    whole one): the shards' squares are summed over that group, so every
+    rank clips by the norm of the whole tensors."""
+    norms = torch._foreach_norm(grads)
+    model_group = next((g for g in groups or () if g is not None), None)
+    if model_group is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        sq = torch.stack(norms).square()
+        sharded = torch.tensor([g is not None for g in groups],
+                               device=sq.device)
+        norm = torch.sqrt(torch.where(sharded, 0.0, sq).sum()
+                          + _sum_over_model(torch.where(sharded, sq, 0.0)
+                                            .sum(), model_group))
     torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0,
                                            max_norm / norm))
     return norm
@@ -101,7 +126,10 @@ class AdamW:
     ``lr`` is a float or a schedule ``count -> lr``; update n (from 0) uses
     ``lr(n)``, as optax counts.  A parameter that got no gradient is updated
     with a zero one (weight decay and the moments' decay apply), as every
-    leaf is in the JAX tree."""
+    leaf is in the JAX tree.  A parameter that ``parallel/mesh.shard_model``
+    split holds its shard: the update is elementwise, the clip's norm that
+    of the whole tensors.  ``global_norm`` is the last step's norm before
+    its clip (a device tensor; None before the first step)."""
 
     def __init__(self, params, lr: Union[float, Callable] = 1e-4,
                  weight_decay: float = 1e-4, clip_norm: float = 1.0,
@@ -110,6 +138,7 @@ class AdamW:
         self.schedule = lr if callable(lr) else (lambda count: lr)
         self.clip_norm = clip_norm
         self.count = 0
+        self.global_norm = None
         self._opt = torch.optim.AdamW(self.params, lr=float(self.schedule(0)),
                                       betas=betas, eps=eps,
                                       weight_decay=weight_decay)
@@ -122,7 +151,9 @@ class AdamW:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        _clip_by_global_norm([p.grad for p in self.params], self.clip_norm)
+        self.global_norm = _clip_by_global_norm(
+            [p.grad for p in self.params], self.clip_norm,
+            [getattr(p, "tp_group", None) for p in self.params])
         for group in self._opt.param_groups:
             group["lr"] = float(self.schedule(self.count))
         self._opt.step()
@@ -264,6 +295,20 @@ def average_gradients(params: Sequence[torch.Tensor],
             g.copy_(part.view_as(g))
 
 
+def _one_replica_gradient(params: Sequence[torch.Tensor],
+                          model_group: dist.ProcessGroup):
+    """Every "model" rank computes the gradient of each replicated
+    parameter, and the card's backward is not bit-stable: the ranks' copies
+    would differ in their last bits, Adam's first update would move the
+    parameters apart by up to 2 lr, and the ranks would then compute one
+    FFN from two models.  The mean over "model" gives them one gradient,
+    as the JAX step has one.  The shards (``tp_group``) are left as they
+    are."""
+    if dist.get_world_size(model_group) > 1:
+        average_gradients([p for p in params if not hasattr(p, "tp_group")],
+                          model_group)
+
+
 def _mean_over_ranks(metrics: Dict, group: dist.ProcessGroup) -> Dict:
     """The metrics averaged over the group (one all_reduce): the global
     step's loss terms."""
@@ -275,18 +320,34 @@ def _mean_over_ranks(metrics: Dict, group: dist.ProcessGroup) -> Dict:
 
 def train_step(model: Detector, optimizer: AdamW, batch: TrainBatch,
                cfg: ModelConfig, fixed_match: bool = False,
-               group: Optional[dist.ProcessGroup] = None) -> Dict:
+               group: Optional[dist.ProcessGroup] = None,
+               mesh: Optional[DeviceMesh] = None) -> Dict:
     """One AdamW step on ``batch``, in place; returns the metrics (device
     tensors, detached).  With a process ``group`` it is the data-parallel
     step: ``batch`` is this rank's part, the gradients and the metrics are
-    averaged over the group before the update."""
+    averaged over the group before the update.  With a ``mesh``
+    (``parallel/mesh.make_mesh``, the model placed by ``shard_model``) it
+    is the dp x tp step: ``batch`` is the whole batch, of which the step
+    keeps this rank's rows (``batch_rows``: split over "data", shared
+    along "model"), and the data-parallel averages run over the mesh's
+    "data" group; the sharded FFNs reduce over "model" in the forward and
+    the backward, the replicated parameters' gradients are averaged over
+    it, and the clip sums the shards' squares over it."""
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("train_step: give a group or a mesh, not both")
+        rows = batch_rows(batch.img.shape[0], mesh)
+        batch = TrainBatch(*(a[rows] for a in batch))
+        group = mesh.get_group("data")
     optimizer.zero_grad()
     total, metrics = loss_fn(model, cfg, batch, fixed_match=fixed_match,
                              group=group)
     total.backward()
     if group is not None:
-        average_gradients([p for p in model.parameters()
-                           if p.requires_grad], group)
+        params = [p for p in model.parameters() if p.requires_grad]
+        average_gradients(params, group)
+        if mesh is not None:
+            _one_replica_gradient(params, mesh.get_group("model"))
         metrics = _mean_over_ranks(metrics, group)
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}

@@ -5,9 +5,12 @@
 JAX tree): conv HWIO -> OIHW, linear ``[in, out]`` -> ``[out, in]``, MHA
 packed ``in_proj`` ``[d, 3d]`` -> ``in_proj_weight`` ``[3d, d]``.  Leaf
 names map as ``w -> weight``, ``b -> bias``, ``scale -> weight``,
-``mean -> running_mean``, ``var -> running_var``; dict keys and list
-indices join with dots, which is the port's module path by construction;
-a ``None`` leaf (a module the configuration leaves out) has no entry.
+``mean -> running_mean``, ``var -> running_var`` (a 4-D ``w`` is HWIO:
+the depthwise ``DPSConvPos`` one goes ``[k, k, 1, dim]`` -> ``[dim, 1, k,
+k]``; other leaves, e.g. ``rel_emb_h`` or ``bias_table``, keep their name
+and layout); dict keys and list indices join with dots, which is the
+port's module path by construction; a ``None`` leaf (a module the
+configuration leaves out) has no entry.
 
 Every JAX leaf is consumed exactly once and every parameter and buffer of
 the port's model is filled exactly once; anything else raises.
@@ -58,13 +61,13 @@ def _convert_leaf(path: tuple, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     return ".".join(mods + [_LEAF[leaf]]), arr
 
 
-def from_jax_params(tree, model_cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def from_jax_module(tree, module: torch.nn.Module
+                    ) -> Dict[str, torch.Tensor]:
     """Convert a JAX parameter tree (numpy or array leaves) to a state dict
-    for :func:`slotvps_tpu_torch.models.detector.init_model`'s model."""
-    from slotvps_tpu_torch.models.detector import Detector
-
-    expected = Detector(torch.Generator().manual_seed(0),
-                        model_cfg).state_dict()
+    for ``module``, whose ``state_dict`` names every entry the tree must
+    fill (e.g. the relative-position variants of
+    ``models/position_encoding.py``)."""
+    expected = module.state_dict()
     state: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree):
         name, arr = _convert_leaf(path, arr)
@@ -81,3 +84,12 @@ def from_jax_params(tree, model_cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"port entries not filled by the JAX tree: {missing}")
     return state
+
+
+def from_jax_params(tree, model_cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Convert a JAX parameter tree (numpy or array leaves) to a state dict
+    for :func:`slotvps_tpu_torch.models.detector.init_model`'s model."""
+    from slotvps_tpu_torch.models.detector import Detector
+
+    return from_jax_module(tree, Detector(torch.Generator().manual_seed(0),
+                                          model_cfg))

@@ -1,21 +1,26 @@
 """Model statistics and timing (counterpart of
 ``slotvps_tpu/utils/profiler.py``): the parameter count in the reference's
 format (printed by the train CLI, reference tools/test_eval_vpq.py:104-106),
-a wall-clock timing harness fenced by ``torch.cuda.synchronize`` on the
-card, and a ``torch.profiler`` trace context.
+the flops and bytes of one call (:func:`cost_analysis`), a wall-clock
+timing harness fenced by ``torch.cuda.synchronize`` on the card, and a
+``torch.profiler`` trace context.
 
-The JAX package's ``cost_analysis`` reads FLOPs and bytes from XLA's
-compiled program; PyTorch runs eagerly and has no such program, so it has
-no counterpart here.
+The JAX package's ``cost_analysis`` reads the flops and bytes of XLA's
+compiled program.  PyTorch runs eagerly, so the port counts the ops of
+one call as they run, by XLA's rules, with each kernel's work counted by
+its formula at the point where the kernel and its plain version part
+(``utils/cost.py``): the count is the same whichever route runs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
+
+from slotvps_tpu_torch.utils import cost
 
 
 def count_params(module: torch.nn.Module) -> int:
@@ -31,6 +36,15 @@ def params_to_string(n: int) -> str:
     if n >= 1e3:
         return f"{n / 1e3:.2f} k"
     return str(n)
+
+
+def cost_analysis(fn: Callable, *args) -> Dict[str, float]:
+    """The flops and bytes of one call ``fn(*args)``, which runs (the JAX
+    package's compiles it): ``{"flops", "bytes_accessed"}`` counted by
+    ``utils/cost.count``."""
+    with cost.count() as c:
+        fn(*args)
+    return {"flops": c.flops, "bytes_accessed": c.bytes_accessed}
 
 
 def _sync(out):
