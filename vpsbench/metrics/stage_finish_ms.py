@@ -1,0 +1,6 @@
+"""ms a frame of the stage pass's ``finish`` stage (a synchronize around
+it, the median over the frames after the first)."""
+
+
+def read(record):
+    return record.get("stages", {}).get("finish")
